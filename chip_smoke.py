@@ -8,18 +8,23 @@ Run from the root of a checkout, on a machine with one H100:
 Phases, in order; any failure stops the script with a traceback and a
 non-zero exit, and the result line is printed only at the end:
   1. device: the card's name, count and nvidia-smi name and power limit;
-  2. build: the ACFF kernel, rtdm_tpu_torch/csrc/acff.cu, with nvcc's -Xptxas -v
-     registers, shared memory and spills;
-  3. kernel vs plain: the ACFF kernel at every ACFF shape of the three
-     classifiers at engine batch 256, fp32 and bf16, against its plain
-     PyTorch version on the same inputs, with times and bounds;
+  2. build: the ACFF kernels, rtdm_tpu_torch/csrc/acff.cu, with nvcc's
+     -Xptxas -v registers, shared memory and spills of both, and the count
+     of tensor-core instructions (HGMMA, HMMA) that cuobjdump finds in the
+     library; none fails the run;
+  3. kernel vs plain: both ACFF kernels (bf16: wgmma, fp32: FMA) at every
+     ACFF shape of the three classifiers, against their plain PyTorch
+     version on the same inputs: checked at batch 1 and 3 (ragged and
+     packed tiles) and checked and timed at engine batch 256, with bounds,
+     share of the bound, and the bf16 kernel's shared memory and blocks
+     per SM;
   4. end to end: the engines of artifacts/engines/ on the 10 example JPEGs,
      held against the port on the CPU and against the committed JAX golden
-     (tests/goldens/torch_port/classifier_logits.npz), with the ACFF launch
-     count of each engine forward, each counted from 0;
+     (tests/goldens/torch_port/classifier_logits.npz), with the launch
+     count of each ACFF kernel in each engine forward, each counted from 0;
   5. timing: Squeeze_ErNET bf16 engine latency at batch 1, 8 and 32 and
      frames/s at batch 256, with peak device memory, and a profiler
-     breakdown of the batch-256 call by kernel;
+     breakdown by kernel of the batch-256 and the batch-1 call;
   6. one JSON line of kernels; then the last line, the result.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -28,8 +33,11 @@ code 2 and no result without CUDA, or when run outside a checkout.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -49,9 +57,11 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12}
 # fp32: the bounds of tests/test_acff_pallas.py. bf16: kernel and plain both
-# round the fp32 result to bf16 once (2^-8 relative); a different summation
-# order can move that rounding by one step.
+# round the depthwise features and the output to bf16 (2^-8 relative each);
+# a different summation order can move either rounding by one step.
 KERNEL_TOL = {"fp32": (1e-4, 1e-5), "bf16": (2e-2, 2e-2)}
+DESIGN = {"bf16": "wgmma", "fp32": "fma"}
+KERNEL_NAME = {"bf16": "acff_bf16_kernel", "fp32": "acff_fp32_kernel"}
 # engine logits, relative to max |logit| (tests/test_torch_engine.py)
 LOGIT_REL_TOL = {"fp32": 1e-4, "bf16": 2e-2}
 LIBRARY_NOTE = ("library_ms: n/a - no single PyTorch call computes the "
@@ -87,6 +97,34 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int) -> float:
+    """Mean device time of one ``fn`` call: ``iters`` calls captured in one
+    CUDA graph, replayed and timed with CUDA events, so that the host's
+    time to enqueue a call does not count (it does with ``cuda_ms`` when a
+    call's kernels are shorter than its Python)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = cuda_ms(graph.replay, 3) / iters
+    del graph
+    return ms
+
+
+def tensor_core_instructions(lib: Path) -> dict:
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in a built library."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    ops = re.findall(r"\b(HGMMA|HMMA)\.", sass)
+    return {name: ops.count(name) for name in ("HGMMA", "HMMA")}
+
+
 def acff_shapes(model: str):
     """(block, C, O, H, W) of every ACFF block on the model's main path,
     read off a forward with hooks."""
@@ -107,6 +145,9 @@ def acff_shapes(model: str):
 
 
 def kernel_inputs(rng, b, c, o, h, w, dtype):
+    """The seven arguments of ``acff_infer_plain`` on the card, x in
+    ``dtype``, and fuse_w packed for the bf16 kernel as ``ACFF.packed()``
+    packs it (None for fp32)."""
     eps = 1e-5
     gamma = rng.uniform(0.5, 1.5, o)
     beta, mean = rng.normal(size=o), rng.normal(size=o) * 0.1
@@ -116,18 +157,25 @@ def kernel_inputs(rng, b, c, o, h, w, dtype):
             rng.normal(size=(3, 3, 3, c)) * 0.3, rng.normal(size=(3, c)),
             rng.normal(size=(3 * c, o)) / np.sqrt(3 * c),
             rng.normal(size=o), scale, beta - mean * scale]
+    from rtdm_tpu_torch.ops.acff import pack_fuse_operand
     args = [torch.from_numpy(a.astype(np.float32)).cuda() for a in host]
     args[0] = args[0].to(dtype)
-    return args
+    fuse_op = pack_fuse_operand(args[3]) if dtype == torch.bfloat16 else None
+    return args, fuse_op
 
 
 def bound(b, c, o, h, w, quant):
-    """Least time (ms) for one call: one read of x and the weights, one
-    write of out, against 2*P*(27C + 3C*O) operations."""
+    """Least time (ms) for one call: one read of x and of the weights the
+    kernel reads, one write of out, against 2*P*(27C + 3C*O) operations.
+    The depthwise weights and biases, fuse_b, scale and shift are fp32;
+    fuse_w is fp32 (3C x O) for the fp32 kernel and bf16 (padded_k(C) x O,
+    pack_fuse_operand) for the bf16 one."""
+    from rtdm_tpu_torch.ops.acff import padded_k
     esize = 4 if quant == "fp32" else 2
     p = b * (h - 2) * (w - 2)
+    fuse_bytes = 4 * 3 * c * o if quant == "fp32" else 2 * padded_k(c) * o
     nbytes = esize * (b * h * w * c + p * o) \
-        + 4 * (27 * c + 3 * c + 3 * c * o + 3 * o)
+        + 4 * (27 * c + 3 * c + 3 * o) + fuse_bytes
     ops = 2 * p * (27 * c + 3 * c * o)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = ops / PEAK_OPS_PER_S[quant]
@@ -135,57 +183,107 @@ def bound(b, c, o, h, w, quant):
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
+def bf16_footprint(b, c, o, h, w):
+    """(dynamic shared memory bytes, blocks per SM) of the bf16 kernel, as
+    the library gives them; fails where the wrapper's own count of the
+    bytes, which ``_check`` holds to the limit, disagrees."""
+    from rtdm_tpu_torch.ops import kernels
+    from rtdm_tpu_torch.ops.acff import bf16_smem_bytes, tile_plan
+    lib = ctypes.CDLL(str(kernels.library_path("acff")))
+    fn = lib.acff_bf16_footprint
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    pl = tile_plan(b, h, w)
+    smem, per_sm = ctypes.c_int(), ctypes.c_int()
+    rc = fn(c, o, pl.images * pl.hy * pl.hx * c * 2, ctypes.byref(smem),
+            ctypes.byref(per_sm))
+    if rc:
+        raise RuntimeError(f"acff_bf16_footprint failed: CUDA error {rc}")
+    counted = bf16_smem_bytes(c, o, pl)
+    if smem.value != counted:
+        raise AssertionError(f"C={c} O={o} H={h}: the kernel takes "
+                             f"{smem.value} B of shared memory, "
+                             f"bf16_smem_bytes counts {counted}")
+    return smem.value, per_sm.value
+
+
+def check_kernel(rng, b, c, o, h, w, quant, dtype, label):
+    """The kernel against its plain version on one random input; returns
+    the inputs and the largest absolute difference."""
+    from rtdm_tpu_torch.ops.acff import acff_infer, acff_infer_plain
+    args, fuse_op = kernel_inputs(rng, b, c, o, h, w, dtype)
+    got = acff_infer(*args, fuse_op)
+    torch.cuda.synchronize()
+    want = acff_infer_plain(*args)
+    rtol, atol = KERNEL_TOL[quant]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol, msg=lambda m: f"{label}: {m}")
+    return args, fuse_op, (got.float() - want.float()).abs().max().item()
+
+
 def phase_kernels(dtypes):
-    """Phase 3: the kernel against its plain version at every main-path
-    shape; returns one record per (model, block, precision)."""
+    """Phase 3: each kernel against its plain version at every main-path
+    shape, at batch 1 and 3 (checked) and 256 (checked and timed); returns
+    one record per (model, block, precision) at batch 256."""
     from rtdm_tpu_torch.ops.acff import acff_infer, acff_infer_plain
     rng = np.random.default_rng(SEED)
     records = []
     for model in MODELS:
         for block, c, o, h, w in acff_shapes(model):
             for quant, dtype in dtypes.items():
-                args = kernel_inputs(rng, BATCH, c, o, h, w, dtype)
-                got = acff_infer(*args)
-                torch.cuda.synchronize()
-                want = acff_infer_plain(*args)
-                err = (got.float() - want.float()).abs().max().item()
-                rtol, atol = KERNEL_TOL[quant]
-                torch.testing.assert_close(
-                    got.float(), want.float(), rtol=rtol, atol=atol,
-                    msg=lambda m: f"{model}/{block} {quant}: {m}")
-                ms = cuda_ms(lambda: acff_infer(*args), 20)
-                plain_ms = cuda_ms(lambda: acff_infer_plain(*args), 5)
+                label = f"{model}/{block} {quant}"
+                small = {b: check_kernel(rng, b, c, o, h, w, quant, dtype,
+                                         f"{label} batch {b}")[2]
+                         for b in (1, 3)}
+                args, fuse_op, err = check_kernel(
+                    rng, BATCH, c, o, h, w, quant, dtype,
+                    f"{label} batch {BATCH}")
+                ms = graph_ms(lambda: acff_infer(*args, fuse_op), 20)
+                plain_ms = graph_ms(lambda: acff_infer_plain(*args), 5)
                 bound_ms, bound_by, nbytes, ops = bound(BATCH, c, o, h, w,
                                                         quant)
                 rec = dict(model=model, block=block, quant=quant,
-                           x=[BATCH, h, w, c], o=o, max_abs_err=err, ms=ms,
-                           plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, bytes=nbytes, ops=ops)
+                           design=DESIGN[quant], x=[BATCH, h, w, c], o=o,
+                           max_abs_err=err, max_abs_err_batch_1_3=small,
+                           ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                           bound_by=bound_by, share_of_bound=bound_ms / ms,
+                           bytes=nbytes, ops=ops)
+                extra = ""
+                if quant == "bf16":
+                    rec["smem_bytes"], rec["blocks_per_sm"] = bf16_footprint(
+                        BATCH, c, o, h, w)
+                    extra = (f" smem={rec['smem_bytes']} B "
+                             f"blocks/SM={rec['blocks_per_sm']}")
                 records.append(rec)
-                say(f"kernel {model}/{block} {quant} x=(256,{h},{w},{c}) "
-                    f"O={o}: max_abs_err={err:.3e} ms={ms:.4f} "
+                say(f"kernel {label} ({DESIGN[quant]}) x=(256,{h},{w},{c}) "
+                    f"O={o}: max_abs_err={err:.3e} (batch 1: "
+                    f"{small[1]:.3e}, 3: {small[3]:.3e}) ms={ms:.4f} "
                     f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-                    f"({bound_by}) library_ms=n/a")
-                del args, got, want
+                    f"({bound_by}, {100 * bound_ms / ms:.1f}% of bound) "
+                    f"library_ms=n/a{extra}")
+                del args, fuse_op
     say(LIBRARY_NOTE)
     return records
 
 
 def phase_end_to_end(frames, golden):
     """Phase 4: every engine on the card against the port on the CPU and
-    the JAX golden. The ACFF launch count is set to 0 just before each
-    engine forward and read just after it; returns those counts by path."""
+    the JAX golden. The launch counts of the ACFF kernels are set to 0 just
+    before each engine forward and read just after it; returns, by path,
+    the launches of the kernel of that path's precision."""
     from rtdm_tpu_torch.export.engine import Engine
-    from rtdm_tpu_torch.ops.acff import ACFF_KERNEL
+    from rtdm_tpu_torch.ops.acff import ACFF_KERNEL, LAUNCHES
     launches = {}
 
     def counted(path, n_blocks, eng, x):
+        quant = eng.spec.normalized_quant()
         ACFF_KERNEL.launches = 0
+        LAUNCHES.update(bf16=0, fp32=0)
         out = eng(x)
-        launches[path] = ACFF_KERNEL.launches
-        if launches[path] != n_blocks:
-            raise AssertionError(f"{path}: {launches[path]} ACFF launches "
-                                 f"for one forward, expected {n_blocks}")
+        launches[path] = LAUNCHES[quant]
+        want = {q: n_blocks if q == quant else 0 for q in LAUNCHES}
+        if LAUNCHES != want or ACFF_KERNEL.launches != n_blocks:
+            raise AssertionError(f"{path}: ACFF launches {LAUNCHES} for one "
+                                 f"forward, expected {want}")
         return out
 
     for model in MODELS:
@@ -229,14 +327,17 @@ def phase_end_to_end(frames, golden):
         say(f"e2e {model} {loaded.spec.quant} engine dir: classes "
             f"{probs.argmax(1).tolist()}")
     for path, n in launches.items():
-        say(f"ACFF kernel launches, one forward of {path}: {n}")
+        say(f"ACFF kernel launches ({KERNEL_NAME[path.split('/')[1][:4]]}), "
+            f"one forward of {path}: {n}")
     return launches
 
 
 def phase_timing(frames, card):
-    """Phase 5: latency and throughput of the Squeeze_ErNET bf16 engine."""
+    """Phase 5: latency and throughput of the Squeeze_ErNET bf16 engine;
+    returns the engine and frames of each batch size."""
     from rtdm_tpu_torch.export.engine import Engine
     loaded = Engine.load(str(ENGINES / "squeeze-ernet_bf16"))
+    engines = {}
     for b in (1, 8, 32, 256):
         eng = Engine(dataclasses.replace(loaded.spec, batch_size=b),
                      loaded.variables)
@@ -257,9 +358,10 @@ def phase_timing(frames, card):
         say(f"latency squeeze-ernet bf16 batch {b}: median {med:.4f} ms, "
             f"p90 {p90:.4f} ms (n=100, host clock); device {device_ms:.4f} "
             f"ms/forward (CUDA events); peak memory {mem} B [{card}]")
+        engines[b] = eng, x
     say(f"throughput squeeze-ernet bf16 batch 256: {256e3 / med:.1f} "
         f"frames/s (median) [{card}]")
-    return eng, x
+    return engines
 
 
 def phase_profile(eng, x, card, forwards=5):
@@ -323,6 +425,12 @@ def main() -> int:
     for line in log.splitlines():
         if "ptxas" in line:
             say(f"  acff: {line.strip()}")
+    counts = tensor_core_instructions(kernels.library_path("acff"))
+    say(f"build: tensor-core instructions in the library (cuobjdump -sass): "
+        f"{counts}")
+    if not sum(counts.values()):
+        raise AssertionError("the ACFF library has no HGMMA or HMMA "
+                             "instruction")
 
     # 3. kernel vs plain
     records = phase_kernels({"fp32": torch.float32, "bf16": torch.bfloat16})
@@ -343,33 +451,44 @@ def main() -> int:
     launches = phase_end_to_end(frames, golden)
 
     # 5. timing
-    eng, x = phase_timing(frames, card)
-    phase_profile(eng, x, card)
+    engines = phase_timing(frames, card)
+    for b in (256, 1):    # batch 1 is host-bound: its device busy share
+        phase_profile(*engines[b], card)
 
-    # 6. kernels line
-    main_path = [r for r in records
-                 if r["model"] == "squeeze-ernet" and r["quant"] == "bf16"]
-    main_key = "squeeze-ernet/bf16 engine dir"
-    worst = max(main_path, key=lambda r: r["bound_ms"])
-    kernel = {
-        "name": "acff_kernel", "route": "cuda",
-        "source": "rtdm_tpu_torch/csrc/acff.cu",
-        "replaces": "rtdm_tpu/ops/acff_pallas.py:43",
-        "launches": launches[main_key],
-        "max_abs_err": max(r["max_abs_err"] for r in main_path),
-        "ms": sum(r["ms"] for r in main_path),
-        "plain_ms": sum(r["plain_ms"] for r in main_path),
-        "bound_ms": sum(r["bound_ms"] for r in main_path),
-        "bound_by": worst["bound_by"],
-        "library_ms": None,
-        "sums_over": "the ACFF blocks of one forward of "
-                     f"{main_key} at batch 256",
-        "launches_per_path": launches,
-        "per_shape": records,
-    }
+    # 6. kernels line: one entry a kernel, summed over the ACFF blocks of
+    # one forward of its main path (the Squeeze_ErNET engine of its
+    # precision), launches counted in that forward
+    main = {"bf16": "squeeze-ernet/bf16 engine dir",
+            "fp32": "squeeze-ernet/fp32"}
+    kernels_line = []
+    for quant, path in main.items():
+        rows = [r for r in records
+                if r["model"] == "squeeze-ernet" and r["quant"] == quant]
+        worst = max(rows, key=lambda r: r["bound_ms"])
+        ms = sum(r["ms"] for r in rows)
+        bound_ms = sum(r["bound_ms"] for r in rows)
+        kernels_line.append({
+            "name": KERNEL_NAME[quant], "route": "cuda",
+            "source": "rtdm_tpu_torch/csrc/acff.cu",
+            "replaces": "rtdm_tpu/ops/acff_pallas.py:43",
+            "launches": launches[path],
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": ms,
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": bound_ms,
+            "bound_by": worst["bound_by"],
+            "library_ms": None,
+            "design": DESIGN[quant],
+            "share_of_bound": bound_ms / ms,
+            "sums_over": f"the ACFF blocks of one forward of {path} at "
+                         f"batch {BATCH}",
+            "launches_per_path": {p: n for p, n in launches.items()
+                                  if p.split("/")[1].startswith(quant)},
+            "per_shape": [r for r in records if r["quant"] == quant],
+        })
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(f"card: {card}")
-    say(json.dumps({"kernels": [kernel]}))
+    say(json.dumps({"kernels": kernels_line}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0

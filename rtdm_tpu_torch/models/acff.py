@@ -7,9 +7,10 @@ LeakyReLU(0.01) BEFORE BatchNorm; Dropout is identity at inference.
 
 The forward runs the whole block as one fused call, ``ops.acff.acff_infer``:
 the hand-written kernel on a CUDA tensor, its plain version on a CPU tensor.
-The kernel's folded fp32 arguments are packed at the first forward and
-again after ``load_state_dict`` or a move (``.to``, ``.cuda``); weights
-changed in place without either are not seen.
+The kernel's folded fp32 arguments, and for bf16 parameters the bf16
+kernel's packed fuse_w, are made at the first forward and again after
+``load_state_dict`` or a move (``.to``, ``.cuda``); weights changed in
+place without either are not seen.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 from torch import nn
 
 from rtdm_tpu_torch.models.layers import BatchNorm, Conv, DepthwiseConv
-from rtdm_tpu_torch.ops.acff import Packed, acff_infer, pack_acff_params
+from rtdm_tpu_torch.ops.acff import (Packed, acff_infer, pack_acff_params,
+                                     pack_fuse_operand)
 
 
 class ACFF(nn.Module):
@@ -42,12 +44,16 @@ class ACFF(nn.Module):
         return super()._apply(fn, *args, **kwargs)
 
     def packed(self) -> Packed:
-        """The kernel's arguments (``pack_acff_params``) for the loaded
-        tensors."""
+        """The kernel's arguments for the loaded tensors: the fp32 ones of
+        ``pack_acff_params``, then fuse_w in the bf16 kernel's B layout
+        (``pack_fuse_operand``) where the parameters are bf16, else None."""
         if self._packed is None:
             state = {**dict(self.named_parameters()),
                      **dict(self.named_buffers())}
-            self._packed = pack_acff_params(state, self.batch_norm.epsilon)
+            args = pack_acff_params(state, self.batch_norm.epsilon)
+            bf16 = self.fused_conv.weight.dtype == torch.bfloat16
+            self._packed = (*args,
+                            pack_fuse_operand(args[2]) if bf16 else None)
         return self._packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Fused ACFF inference block: the Hopper kernel, its wrapper and its plain
-version.
+"""Fused ACFF inference block: the Hopper kernels, their wrapper and their
+plain version.
 
 Counterpart of ``rtdm_tpu/ops/acff_pallas.py``. ``acff_infer`` computes, on
 an NHWC batch, three 3x3 depthwise convs at dilation 1/2/3 with padding
@@ -7,15 +7,32 @@ an NHWC batch, three 3x3 depthwise convs at dilation 1/2/3 with padding
 (P,3C)x(3C,O) product plus bias, LeakyReLU(0.01) and the folded inference
 BN ``out*scale + shift``; out is (B, H-2, W-2, O) in x's dtype.
 
-On a CUDA tensor it launches ``csrc/acff.cu`` (every C and O) or raises; on
-a CPU tensor it runs ``acff_infer_plain``. Both compute in fp32 and round
-the output once.
+On a CUDA tensor it launches ``csrc/acff.cu`` or raises; on a CPU tensor it
+runs ``acff_infer_plain``. Two kernels sit behind the one C entry point:
+
+- fp32 x: FMA kernel, every C and O, all in fp32, the output rounded once;
+- bf16 x: tensor-core kernel (``wgmma``), C a multiple of 8, O in
+  ``BF16_WIDTHS``, and a block's shared memory (``bf16_smem_bytes``)
+  within ``SMEM_LIMIT``: on an 8x8 tile C <= 144 at O <= 128 and C <= 120
+  at O = 256, more where whole small images are packed (every ACFF block
+  of the three models fits). The depthwise
+  features are computed in fp32 and rounded to bf16 once, as the JAX bf16
+  engine rounds each branch; the fuse product reads fuse_w rounded to bf16
+  from ``pack_fuse_operand``'s layout; the epilogue is fp32 and the output
+  is rounded once.
+
+The host side of the bf16 kernel lives here, where the CPU tests reach it:
+``tile_plan`` (which output pixels one thread block owns),
+``pack_fuse_operand`` (fuse_w in the kernel's shared-memory B layout) and
+``bf16_smem_bytes`` (the kernel's shared-memory layout, by size).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping, Tuple
+import dataclasses
+import functools
+from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -24,29 +41,153 @@ from rtdm_tpu_torch.ops.kernels import CudaKernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ACFF_KERNEL = CudaKernel("acff", "acff_infer_launch",
-                         [_P] * 8 + [_I] * 6 + [_P])
+                         [_P] * 9 + [_I] * 15 + [_P])
+# Launches of each kernel behind ACFF_KERNEL, counted where the runtime
+# accepted them ("bf16": the wgmma kernel, "fp32": the FMA kernel).
+LAUNCHES = {"bf16": 0, "fp32": 0}
 
-Packed = Tuple[torch.Tensor, ...]
+Packed = Tuple[Optional[torch.Tensor], ...]
+
+TILE_PIXELS = 64        # one wgmma M: output pixels per thread block
+TILE_SIDE = 8           # the spatial tile is 8x8 output pixels
+HALO = 6                # branch 3 reaches 2 pixels before and 4 after
+K_CHUNK = 64            # fuse_w rows per streamed B chunk
+A_LBO = 144             # bytes between A's core matrices that follow in K
+SMEM_LIMIT = 227 * 1024  # dynamic shared memory of one block on an H100
+BF16_WIDTHS = (64, 96, 128, 256)   # O: two warpgroups of N = O/2
 
 
 def acff_infer_plain(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
                      fuse_w: torch.Tensor, fuse_b: torch.Tensor,
-                     scale: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+                     scale: torch.Tensor, shift: torch.Tensor
+                     ) -> torch.Tensor:
     """The kernel's function in PyTorch ops, computed in fp32.
 
     x: (B,H,W,C); dw_w: (3,3,3,C) [branch, kh, kw, C]; dw_b: (3,C);
     fuse_w: (3C,O); fuse_b/scale/shift: (O,). Returns (B,H-2,W-2,O) in
-    x's dtype."""
+    x's dtype. For a bf16 x the concatenated features and fuse_w are
+    rounded to bf16 before the fuse product, as the bf16 kernel does."""
     c = x.shape[-1]
     xf = x.float().permute(0, 3, 1, 2)
     branches = [F.conv2d(xf, dw_w[d].float().permute(2, 0, 1).unsqueeze(1),
                          dw_b[d].float(), padding=d, dilation=d + 1, groups=c)
                 for d in range(3)]
-    y = F.conv2d(torch.cat(branches, 1), fuse_w.float().t()[:, :, None, None],
-                 fuse_b.float())
+    feat, w = torch.cat(branches, 1), fuse_w.float()
+    if x.dtype == torch.bfloat16:
+        feat, w = feat.to(x.dtype).float(), w.to(x.dtype).float()
+    y = F.conv2d(feat, w.t()[:, :, None, None], fuse_b.float())
     y = F.leaky_relu(y, 0.01)
     y = y * scale.float()[:, None, None] + shift.float()[:, None, None]
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+def padded_k(c: int) -> int:
+    """K of the fuse product, 3C, padded with zero rows to a multiple of 16
+    (one wgmma K step)."""
+    return -(-3 * c // 16) * 16
+
+
+def pack_fuse_operand(fuse_w: torch.Tensor) -> torch.Tensor:
+    """fuse_w (3C, O) as the bf16 kernel's B operand: a flat bf16 tensor.
+
+    K is padded to ``padded_k(C)`` with zero rows and cut into chunks of
+    ``K_CHUNK`` rows (the last may be shorter), stored one after another.
+    A chunk of kc rows holds B transposed (K-major) as 8x8 core matrices:
+    element (k, n) of the chunk lies at
+    ``((n//8 * kc//8 + k//8) * 8 + n%8) * 8 + k%8``, so core matrices that
+    follow in K are 128 bytes apart and those that follow in N kc*16 bytes
+    apart (the leading and stride byte offsets of the kernel's descriptor).
+    """
+    k3, o = fuse_w.shape
+    if o % 8:
+        raise ValueError(f"fuse_w width {o} is not a multiple of 8")
+    kp = padded_k(k3 // 3)
+    w = torch.zeros((kp, o), dtype=torch.bfloat16, device=fuse_w.device)
+    w[:k3] = fuse_w.to(torch.bfloat16)
+    chunks = []
+    for k0 in range(0, kp, K_CHUNK):
+        blk = w[k0:k0 + K_CHUNK]                    # (kc, O)
+        kc = blk.shape[0]
+        chunks.append(blk.t().reshape(o // 8, 8, kc // 8, 8)
+                      .permute(0, 2, 1, 3).reshape(-1))
+    return torch.cat(chunks).contiguous()
+
+
+def unpack_fuse_operand(packed: torch.Tensor, c: int, o: int) -> torch.Tensor:
+    """Inverse of ``pack_fuse_operand``: the (padded_k(c), O) bf16 matrix,
+    padding rows included."""
+    kp = padded_k(c)
+    rows, off = [], 0
+    for k0 in range(0, kp, K_CHUNK):
+        kc = min(K_CHUNK, kp - k0)
+        blk = packed[off:off + kc * o].reshape(o // 8, kc // 8, 8, 8)
+        rows.append(blk.permute(0, 2, 1, 3).reshape(o, kc).t())
+        off += kc * o
+    return torch.cat(rows)
+
+
+@dataclasses.dataclass(frozen=True)
+class TilePlan:
+    """Which output pixels one thread block of the bf16 kernel owns.
+
+    A tile is ``images`` images (from ``b0``) of ``th`` x ``tw`` output
+    pixels at (oy0, ox0); its input box is ``images`` x ``hy`` x ``hx``
+    pixels from (oy0 - origin, ox0 - origin). Pixel p of the tile (p <
+    images*th*tw <= 64) is image p // (th*tw), row (p % (th*tw)) // tw,
+    column p % tw; rows past the batch or the image are masked."""
+    th: int
+    tw: int
+    images: int
+    tiles_h: int
+    tiles_w: int
+    hy: int
+    hx: int
+    origin: int
+    n_tiles: int
+
+    def tile_origin(self, t: int) -> Tuple[int, int, int]:
+        """(b0, oy0, ox0) of tile t, as the kernel computes it."""
+        per_image = self.tiles_h * self.tiles_w
+        rem = t % per_image
+        return ((t // per_image) * self.images,
+                (rem // self.tiles_w) * self.th,
+                (rem % self.tiles_w) * self.tw)
+
+    def scalars(self) -> Tuple[int, ...]:
+        return (self.th, self.tw, self.images, self.tiles_h, self.tiles_w,
+                self.hy, self.hx, self.origin, self.n_tiles)
+
+
+@functools.lru_cache(maxsize=64)
+def tile_plan(b: int, h: int, w: int) -> TilePlan:
+    """Tile an (H-2)x(W-2) output: 8x8 spatial tiles with a 14x14 input box
+    (zero outside the image, which is the branches' padding), or, where
+    the whole output fits 8x8, whole images packed min(B, 64 // (OH*OW))
+    a tile with the image itself as the box (the kernel zero-pads the
+    taps)."""
+    oh, ow = h - 2, w - 2
+    if oh <= TILE_SIDE and ow <= TILE_SIDE:
+        images = max(1, min(b, TILE_PIXELS // (oh * ow)))
+        return TilePlan(oh, ow, images, 1, 1, h, w, 0, -(-b // images))
+    tiles_h, tiles_w = -(-oh // TILE_SIDE), -(-ow // TILE_SIDE)
+    side = TILE_SIDE + HALO
+    return TilePlan(TILE_SIDE, TILE_SIDE, 1, tiles_h, tiles_w, side, side, 2,
+                    b * tiles_h * tiles_w)
+
+
+def bf16_smem_bytes(c: int, o: int, plan: TilePlan) -> int:
+    """Dynamic shared memory of one bf16 block, as ``Smem`` in
+    ``csrc/acff.cu`` lays it out, plus the 128 bytes that align its base:
+    4 mbarriers; dw_w and dw_b in fp32; two input boxes, each also the
+    staged output tile; A in core matrices ``A_LBO`` apart in K; two B
+    stages of up to ``K_CHUNK`` rows."""
+    def up(v: int) -> int:
+        return -(-v // 128) * 128
+    kp = padded_k(c)
+    box = plan.images * plan.hy * plan.hx * c * 2
+    boxsz = up(max(box, TILE_PIXELS * (2 * o + 16)))
+    a = up(128 + 30 * c * 4) + 2 * boxsz
+    return up(a + kp * A_LBO) + 2 * min(kp, K_CHUNK) * o * 2 + 128
 
 
 def _check(x: torch.Tensor, dw_w, dw_b, fuse_w, fuse_b, scale, shift) -> None:
@@ -68,15 +209,31 @@ def _check(x: torch.Tensor, dw_w, dw_b, fuse_w, fuse_b, scale, shift) -> None:
             raise ValueError(f"{name} must be contiguous on {x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous NHWC")
+    if x.dtype == torch.bfloat16:
+        # the input box is a TMA tensor map: 16-byte rows, boxes <= 256
+        if c % 8 or c > 256 or h > 256 or w > 256 or o not in BF16_WIDTHS:
+            raise ValueError(f"bf16 kernel takes C % 8 == 0, C <= 256, "
+                             f"H, W <= 256 and O in {BF16_WIDTHS}; got C={c} "
+                             f"O={o} H={h} W={w}")
+        smem = bf16_smem_bytes(c, o, tile_plan(b, h, w))
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"bf16 kernel: a block at C={c} O={o} H={h} "
+                             f"W={w} needs {smem} B of shared memory, over "
+                             f"{SMEM_LIMIT}")
+        if x.data_ptr() % 16:
+            raise ValueError("x must start on a 16-byte boundary")
 
 
 def acff_infer(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
                fuse_w: torch.Tensor, fuse_b: torch.Tensor, scale: torch.Tensor,
-               shift: torch.Tensor) -> torch.Tensor:
+               shift: torch.Tensor,
+               fuse_operand: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused ACFF block; arguments as ``acff_infer_plain``, weights fp32.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel on the current stream, and a failed build or launch raises."""
+    ``fuse_operand`` is ``pack_fuse_operand(fuse_w)``, which the bf16
+    kernel reads: required for a bf16 x on CUDA, not read otherwise. A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel on
+    the current stream, and a failed build or launch raises."""
     if x.device.type == "cpu":
         return acff_infer_plain(x, dw_w, dw_b, fuse_w, fuse_b, scale, shift)
     if x.device.type != "cuda":
@@ -84,14 +241,23 @@ def acff_infer(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
     _check(x, dw_w, dw_b, fuse_w, fuse_b, scale, shift)
     b, h, w, c = x.shape
     o = fuse_w.shape[-1]
+    bf16 = x.dtype == torch.bfloat16
+    if bf16:
+        if (fuse_operand is None or fuse_operand.dtype != torch.bfloat16
+                or fuse_operand.numel() != padded_k(c) * o
+                or fuse_operand.device != x.device
+                or not fuse_operand.is_contiguous()):
+            raise ValueError("fuse_operand is not pack_fuse_operand(fuse_w)")
+    plan = tile_plan(b, h, w) if bf16 else TilePlan(0, 0, 0, 0, 0, 0, 0, 0, 0)
     out = torch.empty((b, h - 2, w - 2, o), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         ACFF_KERNEL.launch(
             x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), fuse_w.data_ptr(),
-            fuse_b.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-            out.data_ptr(), b, h, w, c, o, int(x.dtype == torch.bfloat16),
-            stream)
+            fuse_operand.data_ptr() if bf16 else None, fuse_b.data_ptr(),
+            scale.data_ptr(), shift.data_ptr(), out.data_ptr(), b, h, w, c, o,
+            int(bf16), *plan.scalars(), stream)
+    LAUNCHES["bf16" if bf16 else "fp32"] += 1
     return out
 
 

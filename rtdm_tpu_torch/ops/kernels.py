@@ -36,6 +36,12 @@ def _nvcc() -> str:
                        f"{CSRC} with the CUDA toolkit")
 
 
+def nvcc_command(src: Path, lib: Path) -> List[str]:
+    """The ``nvcc`` command that compiles ``src`` into the shared library
+    ``lib`` with the port's flags."""
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(lib), str(src)]
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
@@ -51,7 +57,7 @@ def build(name: str) -> str:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(".tmp")       # no half-written library on a kill
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            nvcc_command(CSRC / f"{name}.cu", tmp),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         lib.with_suffix(".log").write_text(proc.stdout)
         if proc.returncode != 0:

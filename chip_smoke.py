@@ -10,21 +10,29 @@ non-zero exit, and the result line is printed only at the end:
   1. device: the card's name, count and nvidia-smi name and power limit;
   2. build: the ACFF kernels, rtdm_tpu_torch/csrc/acff.cu, with nvcc's
      -Xptxas -v registers, shared memory and spills of both, and the count
-     of tensor-core instructions (HGMMA, HMMA) that cuobjdump finds in the
-     library; none fails the run;
-  3. kernel vs plain: both ACFF kernels (bf16: wgmma, fp32: FMA) at every
-     ACFF shape of the three classifiers, against their plain PyTorch
-     version on the same inputs: checked at batch 1 and 3 (ragged and
-     packed tiles) and checked and timed at engine batch 256, with bounds,
-     share of the bound, and the bf16 kernel's shared memory and blocks
-     per SM;
+     of tensor-core instructions (HGMMA, HMMA, and the HGMMA on TF32) that
+     cuobjdump finds in the library; no bf16 or no TF32 HGMMA fails the
+     run;
+  3. kernel vs plain: both ACFF kernels (bf16: wgmma, fp32: 3xTF32 on
+     wgmma) at every ACFF shape of the three classifiers, against their
+     plain PyTorch version on the same inputs: checked at batch 1 and 3
+     (ragged and packed tiles) and checked and timed at engine batch 256,
+     the fp32 kernel timed at batch 1 too and held to the plain version
+     computed in float64 (FP64_REL_TOL), with bounds (fp32: the 3xTF32 and
+     the FMA-peak one), share of the bound, and each kernel's shared
+     memory (checked against the wrapper's count) and blocks per SM;
   4. end to end: the engines of artifacts/engines/ on the 10 example JPEGs,
      held against the port on the CPU and against the committed JAX golden
      (tests/goldens/torch_port/classifier_logits.npz), with the launch
      count of each ACFF kernel in each engine forward, each counted from 0;
+     and the fp32 kernel, on the inputs each ACFF block of the fp32
+     engines gets from the golden frames, against the plain version in
+     float64: its largest error (FP64_REL_TOL) and its mean signed error
+     (BIAS_TOL), beside the plain fp32 version's;
   5. timing: Squeeze_ErNET bf16 engine latency at batch 1, 8 and 32 and
-     frames/s at batch 256, with peak device memory, and a profiler
-     breakdown by kernel of the batch-256 and the batch-1 call;
+     frames/s at batch 256, its fp32 engine at batch 1 and 256, with peak
+     device memory, and a profiler breakdown by kernel of the bf16
+     batch-256 and batch-1 calls;
   6. one JSON line of kernels; then the last line, the result.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -33,6 +41,7 @@ code 2 and no result without CUDA, or when run outside a checkout.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -53,15 +62,25 @@ MODELS = ("squeeze-ernet", "squeeze-redconv", "ernet")
 BATCH = 256
 SEED = 0
 # H100 SXM, NVIDIA's data sheet: HBM rate, fp32 FMA rate outside the tensor
-# cores, dense bf16 tensor-core rate.
+# cores, dense bf16 and TF32 tensor-core rates.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12}
+PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12}
 # fp32: the bounds of tests/test_acff_pallas.py. bf16: kernel and plain both
 # round the depthwise features and the output to bf16 (2^-8 relative each);
 # a different summation order can move either rounding by one step.
 KERNEL_TOL = {"fp32": (1e-4, 1e-5), "bf16": (2e-2, 2e-2)}
-DESIGN = {"bf16": "wgmma", "fp32": "fma"}
+DESIGN = {"bf16": "wgmma", "fp32": "3xtf32-wgmma"}
 KERNEL_NAME = {"bf16": "acff_bf16_kernel", "fp32": "acff_fp32_kernel"}
+# fp32 kernel against the plain version computed in float64, relative to
+# max |out|: full fp32 accuracy (3xTF32 reaches ~1e-6; one TF32 product,
+# hi*hi, ~1e-4, which fails)
+FP64_REL_TOL = 1e-5
+# The fp32 kernel on the inputs its blocks get from real frames: the mean
+# of (out - fp64) * sign(fp64) over mean |fp64|. Rounding toward zero, as
+# the tensor cores round the sums they carry, makes it negative, and such
+# a bias does not average away in the next block's sums as rounding to
+# nearest does; random N(0, 1) inputs, centred on zero, do not show it.
+BIAS_TOL = 1e-7
 # engine logits, relative to max |logit| (tests/test_torch_engine.py)
 LOGIT_REL_TOL = {"fp32": 1e-4, "bf16": 2e-2}
 LIBRARY_NOTE = ("library_ms: n/a - no single PyTorch call computes the "
@@ -117,12 +136,15 @@ def graph_ms(fn, iters: int) -> float:
 
 
 def tensor_core_instructions(lib: Path) -> dict:
-    """HGMMA (wgmma) and HMMA (mma.sync) instructions in a built library."""
+    """HGMMA (wgmma) and HMMA (mma.sync) instructions in a built library,
+    and the HGMMA ones that take TF32 operands."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     sass = subprocess.run([tool, "-sass", str(lib)], check=True,
                           capture_output=True, text=True, timeout=300).stdout
     ops = re.findall(r"\b(HGMMA|HMMA)\.", sass)
-    return {name: ops.count(name) for name in ("HGMMA", "HMMA")}
+    counts = {name: ops.count(name) for name in ("HGMMA", "HMMA")}
+    counts["HGMMA_TF32"] = len(re.findall(r"\bHGMMA\.\S*TF32", sass))
+    return counts
 
 
 def acff_shapes(model: str):
@@ -146,8 +168,8 @@ def acff_shapes(model: str):
 
 def kernel_inputs(rng, b, c, o, h, w, dtype):
     """The seven arguments of ``acff_infer_plain`` on the card, x in
-    ``dtype``, and fuse_w packed for the bf16 kernel as ``ACFF.packed()``
-    packs it (None for fp32)."""
+    ``dtype``, and fuse_w packed for the kernel of that precision as
+    ``ACFF.packed()`` packs it."""
     eps = 1e-5
     gamma = rng.uniform(0.5, 1.5, o)
     beta, mean = rng.normal(size=o), rng.normal(size=o) * 0.1
@@ -157,58 +179,82 @@ def kernel_inputs(rng, b, c, o, h, w, dtype):
             rng.normal(size=(3, 3, 3, c)) * 0.3, rng.normal(size=(3, c)),
             rng.normal(size=(3 * c, o)) / np.sqrt(3 * c),
             rng.normal(size=o), scale, beta - mean * scale]
-    from rtdm_tpu_torch.ops.acff import pack_fuse_operand
+    from rtdm_tpu_torch.ops.acff import (pack_fuse_operand,
+                                         pack_fuse_operand_tf32)
     args = [torch.from_numpy(a.astype(np.float32)).cuda() for a in host]
     args[0] = args[0].to(dtype)
-    fuse_op = pack_fuse_operand(args[3]) if dtype == torch.bfloat16 else None
-    return args, fuse_op
+    pack = (pack_fuse_operand if dtype == torch.bfloat16
+            else pack_fuse_operand_tf32)
+    return args, pack(args[3])
 
 
-def bound(b, c, o, h, w, quant):
-    """Least time (ms) for one call: one read of x and of the weights the
-    kernel reads, one write of out, against 2*P*(27C + 3C*O) operations.
-    The depthwise weights and biases, fuse_b, scale and shift are fp32;
-    fuse_w is fp32 (3C x O) for the fp32 kernel and bf16 (padded_k(C) x O,
-    pack_fuse_operand) for the bf16 one."""
+def bound(b, c, o, h, w, route):
+    """Least time (ms) for one call, the larger of its bytes over 3.35 TB/s
+    and its operations over the peak of the units that run them; returns
+    (ms, "bytes" or "operations", bytes, operations).
+
+    Bytes: one read of x and of the weights, one write of out. The
+    depthwise weights and biases, fuse_b, scale and shift are fp32; fuse_w
+    is bf16 K-padded as the bf16 kernel reads it (``pack_fuse_operand``)
+    for "bf16", and fp32 (3C x O, read once) for "3xtf32" and "fma": the
+    function needs it at fp32 only, and the fp32 kernel's split into hi
+    and lo is its own choice. Operations, 2*P*(27C + 3C*O): all at the bf16
+    tensor-core rate for "bf16"; all at the fp32 FMA rate for "fma"; for
+    "3xtf32" the depthwise at the FMA rate and the fuse product three
+    times over at the TF32 tensor-core rate, as separate floors."""
     from rtdm_tpu_torch.ops.acff import padded_k
-    esize = 4 if quant == "fp32" else 2
+    esize = 2 if route == "bf16" else 4
     p = b * (h - 2) * (w - 2)
-    fuse_bytes = 4 * 3 * c * o if quant == "fp32" else 2 * padded_k(c) * o
+    fuse_bytes = 2 * padded_k(c) * o if route == "bf16" else 4 * 3 * c * o
     nbytes = esize * (b * h * w * c + p * o) \
         + 4 * (27 * c + 3 * c + 3 * o) + fuse_bytes
-    ops = 2 * p * (27 * c + 3 * c * o)
+    dw_ops, fuse_ops = 2 * p * 27 * c, 2 * p * 3 * c * o
+    if route == "3xtf32":
+        ops = dw_ops + 3 * fuse_ops
+        t_ops = max(dw_ops / PEAK_OPS_PER_S["fp32"],
+                    3 * fuse_ops / PEAK_OPS_PER_S["tf32"])
+    else:
+        ops = dw_ops + fuse_ops
+        t_ops = ops / PEAK_OPS_PER_S["bf16" if route == "bf16" else "fp32"]
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / PEAK_OPS_PER_S[quant]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
-def bf16_footprint(b, c, o, h, w):
-    """(dynamic shared memory bytes, blocks per SM) of the bf16 kernel, as
-    the library gives them; fails where the wrapper's own count of the
-    bytes, which ``_check`` holds to the limit, disagrees."""
+def footprint(quant, b, c, o, h, w):
+    """(dynamic shared memory bytes, blocks per SM) of the kernel of
+    ``quant``, as the library gives them; fails where the wrapper's own
+    count of the bytes (``bf16_smem_bytes`` / ``fp32_smem_bytes``), which
+    ``_check`` holds to the limit, disagrees."""
     from rtdm_tpu_torch.ops import kernels
-    from rtdm_tpu_torch.ops.acff import bf16_smem_bytes, tile_plan
+    from rtdm_tpu_torch.ops.acff import (bf16_smem_bytes, fp32_smem_bytes,
+                                         tile_plan)
     lib = ctypes.CDLL(str(kernels.library_path("acff")))
-    fn = lib.acff_bf16_footprint
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
     pl = tile_plan(b, h, w)
     smem, per_sm = ctypes.c_int(), ctypes.c_int()
-    rc = fn(c, o, pl.images * pl.hy * pl.hx * c * 2, ctypes.byref(smem),
-            ctypes.byref(per_sm))
+    out = [ctypes.byref(smem), ctypes.byref(per_sm)]
+    if quant == "bf16":
+        fn = lib.acff_bf16_footprint
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+        rc = fn(c, o, pl.images * pl.hy * pl.hx * c * 2, *out)
+        counted = bf16_smem_bytes(c, o, pl)
+    else:
+        fn = lib.acff_fp32_footprint
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+        rc = fn(c, o, pl.images, pl.hy, pl.hx, *out)
+        counted = fp32_smem_bytes(c, o, pl)
     if rc:
-        raise RuntimeError(f"acff_bf16_footprint failed: CUDA error {rc}")
-    counted = bf16_smem_bytes(c, o, pl)
+        raise RuntimeError(f"acff_{quant}_footprint failed: CUDA error {rc}")
     if smem.value != counted:
-        raise AssertionError(f"C={c} O={o} H={h}: the kernel takes "
-                             f"{smem.value} B of shared memory, "
-                             f"bf16_smem_bytes counts {counted}")
+        raise AssertionError(f"{quant} C={c} O={o} H={h}: the kernel takes "
+                             f"{smem.value} B of shared memory, the wrapper "
+                             f"counts {counted}")
     return smem.value, per_sm.value
 
 
 def check_kernel(rng, b, c, o, h, w, quant, dtype, label):
     """The kernel against its plain version on one random input; returns
-    the inputs and the largest absolute difference."""
+    the inputs, the largest absolute difference, and both outputs."""
     from rtdm_tpu_torch.ops.acff import acff_infer, acff_infer_plain
     args, fuse_op = kernel_inputs(rng, b, c, o, h, w, dtype)
     got = acff_infer(*args, fuse_op)
@@ -217,13 +263,76 @@ def check_kernel(rng, b, c, o, h, w, quant, dtype, label):
     rtol, atol = KERNEL_TOL[quant]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol, msg=lambda m: f"{label}: {m}")
-    return args, fuse_op, (got.float() - want.float()).abs().max().item()
+    err = (got.float() - want.float()).abs().max().item()
+    return args, fuse_op, err, got, want
+
+
+def fp64_errors(args, got, want, label):
+    """(max |kernel - fp64|, max |plain fp32 - fp64|, max |fp64|) with the
+    plain version computed in float64 on the card; fails where the
+    kernel's error is above FP64_REL_TOL of max |fp64|."""
+    from rtdm_tpu_torch.ops.acff import acff_infer_plain
+    ref = acff_infer_plain(*[a.double() for a in args])
+    k_err = (got.double() - ref).abs().max().item()
+    p_err = (want.double() - ref).abs().max().item()
+    top = ref.abs().max().item()
+    del ref
+    if not k_err <= FP64_REL_TOL * top:
+        raise AssertionError(f"{label}: max |kernel - fp64| = {k_err:.3e} "
+                             f"> {FP64_REL_TOL} x max |out| ({top:.3e})")
+    return k_err, p_err, top
+
+
+@contextlib.contextmanager
+def acff_inputs(net, n):
+    """Collects, in forward order, (name, block, x) for every ACFF block of
+    ``net`` that runs inside the ``with``: x is a copy of the first ``n``
+    images of the block's input (forward pre-hooks; no kernel launch)."""
+    from rtdm_tpu_torch.models import ACFF
+    seen = []
+
+    def hook(mod, args, name):
+        seen.append((name, mod, args[0][:n].clone()))
+    hooks = [mod.register_forward_pre_hook(
+        lambda m, args, name=name: hook(m, args, name))
+        for name, mod in net.named_modules() if isinstance(mod, ACFF)]
+    try:
+        yield seen
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def real_input_errors(blocks):
+    """The fp32 kernel on each block's real input (``acff_inputs``) against
+    the plain version in fp32 and in float64 on the card. Per block, for
+    the kernel and for the plain fp32 version: max |out - fp64| over max
+    |fp64| ("max") and the mean of (out - fp64) * sign(fp64) over mean
+    |fp64| ("bias")."""
+    from rtdm_tpu_torch.ops.acff import acff_infer, acff_infer_plain
+    rows = []
+    for name, mod, x in blocks:
+        args = mod.packed()
+        got = acff_infer(x, *args)
+        want = acff_infer_plain(x, *args[:6])
+        ref = acff_infer_plain(x.double(), *args[:6])
+        sign, mean = ref.sign(), ref.abs().mean().item()
+        row = {"block": name, "x": list(x.shape),
+               "max_abs_out": ref.abs().max().item()}
+        for who, out in (("kernel", got), ("plain", want)):
+            d = out.double() - ref
+            row[f"{who}_max"] = d.abs().max().item() / row["max_abs_out"]
+            row[f"{who}_bias"] = (d * sign).mean().item() / mean
+        del got, want, ref, sign
+        rows.append(row)
+    return rows
 
 
 def phase_kernels(dtypes):
     """Phase 3: each kernel against its plain version at every main-path
-    shape, at batch 1 and 3 (checked) and 256 (checked and timed); returns
-    one record per (model, block, precision) at batch 256."""
+    shape, at batch 1 (checked and timed), 3 (checked) and 256 (checked,
+    timed, and for fp32 held to the float64 plain version); returns one
+    record per (model, block, precision) at batch 256."""
     from rtdm_tpu_torch.ops.acff import acff_infer, acff_infer_plain
     rng = np.random.default_rng(SEED)
     records = []
@@ -231,48 +340,68 @@ def phase_kernels(dtypes):
         for block, c, o, h, w in acff_shapes(model):
             for quant, dtype in dtypes.items():
                 label = f"{model}/{block} {quant}"
-                small = {b: check_kernel(rng, b, c, o, h, w, quant, dtype,
-                                         f"{label} batch {b}")[2]
-                         for b in (1, 3)}
-                args, fuse_op, err = check_kernel(
+                small, ms_1 = {}, None
+                for b in (1, 3):
+                    args, fuse_op, small[b], *_ = check_kernel(
+                        rng, b, c, o, h, w, quant, dtype,
+                        f"{label} batch {b}")
+                    if b == 1:
+                        ms_1 = graph_ms(lambda: acff_infer(*args, fuse_op),
+                                        20)
+                args, fuse_op, err, got, want = check_kernel(
                     rng, BATCH, c, o, h, w, quant, dtype,
                     f"{label} batch {BATCH}")
                 ms = graph_ms(lambda: acff_infer(*args, fuse_op), 20)
                 plain_ms = graph_ms(lambda: acff_infer_plain(*args), 5)
+                route = "bf16" if quant == "bf16" else "3xtf32"
                 bound_ms, bound_by, nbytes, ops = bound(BATCH, c, o, h, w,
-                                                        quant)
+                                                        route)
                 rec = dict(model=model, block=block, quant=quant,
                            design=DESIGN[quant], x=[BATCH, h, w, c], o=o,
                            max_abs_err=err, max_abs_err_batch_1_3=small,
-                           ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                           bound_by=bound_by, share_of_bound=bound_ms / ms,
-                           bytes=nbytes, ops=ops)
+                           ms=ms, ms_batch_1=ms_1, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by,
+                           share_of_bound=bound_ms / ms, bytes=nbytes,
+                           ops=ops)
                 extra = ""
-                if quant == "bf16":
-                    rec["smem_bytes"], rec["blocks_per_sm"] = bf16_footprint(
-                        BATCH, c, o, h, w)
-                    extra = (f" smem={rec['smem_bytes']} B "
-                             f"blocks/SM={rec['blocks_per_sm']}")
+                rec["smem_bytes"], rec["blocks_per_sm"] = footprint(
+                    quant, BATCH, c, o, h, w)
+                if quant == "fp32":
+                    fma = bound(BATCH, c, o, h, w, "fma")
+                    rec.update(fma_bound_ms=fma[0], fma_bound_by=fma[1],
+                               fma_share_of_bound=fma[0] / ms)
+                    k64, p64, top = fp64_errors(args, got, want, label)
+                    rec.update(fp64_err=k64, plain_fp64_err=p64,
+                               fp64_max_abs_out=top)
+                    extra = (f" fma_bound_ms={fma[0]:.4f} ({fma[1]}, "
+                             f"{100 * fma[0] / ms:.1f}%) vs fp64: kernel "
+                             f"{k64:.3e} plain {p64:.3e} (max|out| "
+                             f"{top:.3e}, limit {FP64_REL_TOL * top:.3e})")
+                extra += (f" smem={rec['smem_bytes']} B "
+                          f"blocks/SM={rec['blocks_per_sm']}")
                 records.append(rec)
                 say(f"kernel {label} ({DESIGN[quant]}) x=(256,{h},{w},{c}) "
                     f"O={o}: max_abs_err={err:.3e} (batch 1: "
                     f"{small[1]:.3e}, 3: {small[3]:.3e}) ms={ms:.4f} "
-                    f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
-                    f"({bound_by}, {100 * bound_ms / ms:.1f}% of bound) "
+                    f"ms_batch_1={ms_1:.4f} plain_ms={plain_ms:.4f} "
+                    f"bound_ms={bound_ms:.4f} ({bound_by}, "
+                    f"{100 * bound_ms / ms:.1f}% of bound) "
                     f"library_ms=n/a{extra}")
-                del args, fuse_op
+                del args, fuse_op, got, want
     say(LIBRARY_NOTE)
     return records
 
 
 def phase_end_to_end(frames, golden):
     """Phase 4: every engine on the card against the port on the CPU and
-    the JAX golden. The launch counts of the ACFF kernels are set to 0 just
-    before each engine forward and read just after it; returns, by path,
-    the launches of the kernel of that path's precision."""
+    the JAX golden, and the fp32 kernel on the inputs each block of the
+    fp32 engines gets from the golden frames (``real_input_errors``). The
+    launch counts of the ACFF kernels are set to 0 just before each engine
+    forward and read just after it; returns, by path, the launches of the
+    kernel of that path's precision, and the real-input rows."""
     from rtdm_tpu_torch.export.engine import Engine
     from rtdm_tpu_torch.ops.acff import ACFF_KERNEL, LAUNCHES
-    launches = {}
+    launches, real = {}, []
 
     def counted(path, n_blocks, eng, x):
         quant = eng.spec.normalized_quant()
@@ -309,8 +438,9 @@ def phase_end_to_end(frames, golden):
                 f"{err:.4e} (limit {tol:.4e}), argmax equal")
             if quant == "fp32":
                 ref = golden[model]
-                gl = counted(f"{model}/fp32 golden frames", n_blocks, eng,
-                             golden[f"frames_{spec.image_size}"])
+                with acff_inputs(eng.model, len(ref)) as blocks:
+                    gl = counted(f"{model}/fp32 golden frames", n_blocks,
+                                 eng, golden[f"frames_{spec.image_size}"])
                 gerr = np.abs(gl - ref).max()
                 gtol = LOGIT_REL_TOL["fp32"] * np.abs(ref).max()
                 if not (gerr <= gtol and
@@ -319,6 +449,21 @@ def phase_end_to_end(frames, golden):
                                          f"max |d|={gerr} > {gtol} or argmax")
                 say(f"e2e {model} fp32: card vs JAX golden max|dlogit|="
                     f"{gerr:.4e} (limit {gtol:.4e}), argmax equal")
+                for row in real_input_errors(blocks):
+                    real.append({"model": model, **row})
+                    say(f"real inputs {model}/{row['block']} x={row['x']}: "
+                        f"vs fp64, of max|out| {row['max_abs_out']:.3e}: "
+                        f"kernel {row['kernel_max']:.3e}, plain "
+                        f"{row['plain_max']:.3e}; bias, of mean|out|: "
+                        f"kernel {row['kernel_bias']:.3e}, plain "
+                        f"{row['plain_bias']:.3e} (limits {FP64_REL_TOL}, "
+                        f"{BIAS_TOL})")
+                    if not (row["kernel_max"] <= FP64_REL_TOL
+                            and abs(row["kernel_bias"]) <= BIAS_TOL):
+                        raise AssertionError(
+                            f"{model}/{row['block']}: the fp32 kernel on "
+                            f"real inputs is outside its limits")
+                del blocks
         probs = counted(f"{model}/{loaded.spec.quant} engine dir", n_blocks,
                         loaded, x)
         if not (probs.shape == (len(x), loaded.spec.num_classes) and
@@ -329,38 +474,42 @@ def phase_end_to_end(frames, golden):
     for path, n in launches.items():
         say(f"ACFF kernel launches ({KERNEL_NAME[path.split('/')[1][:4]]}), "
             f"one forward of {path}: {n}")
-    return launches
+    return launches, real
 
 
 def phase_timing(frames, card):
-    """Phase 5: latency and throughput of the Squeeze_ErNET bf16 engine;
-    returns the engine and frames of each batch size."""
+    """Phase 5: latency of the Squeeze_ErNET bf16 engine at batch 1, 8, 32
+    and 256 (frames/s at 256) and of its fp32 engine at batch 1 and 256;
+    returns the bf16 engine and frames of each batch size."""
     from rtdm_tpu_torch.export.engine import Engine
     loaded = Engine.load(str(ENGINES / "squeeze-ernet_bf16"))
     engines = {}
-    for b in (1, 8, 32, 256):
-        eng = Engine(dataclasses.replace(loaded.spec, batch_size=b),
-                     loaded.variables)
-        x = np.resize(frames["squeeze-ernet"], (b, 140, 140, 3))
-        for _ in range(5):
-            eng(x)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        samples = []
-        for _ in range(100):
-            t0 = time.perf_counter()
-            eng(x)              # ends in a device-to-host copy: synchronised
-            samples.append((time.perf_counter() - t0) * 1e3)
-        samples.sort()
-        med, p90 = samples[49], samples[89]
-        device_ms = cuda_ms(lambda: eng.dispatch(x), 20)
-        mem = torch.cuda.max_memory_allocated()
-        say(f"latency squeeze-ernet bf16 batch {b}: median {med:.4f} ms, "
-            f"p90 {p90:.4f} ms (n=100, host clock); device {device_ms:.4f} "
-            f"ms/forward (CUDA events); peak memory {mem} B [{card}]")
-        engines[b] = eng, x
-    say(f"throughput squeeze-ernet bf16 batch 256: {256e3 / med:.1f} "
-        f"frames/s (median) [{card}]")
+    for quant, batches in (("bf16", (1, 8, 32, 256)), ("fp32", (1, 256))):
+        for b in batches:
+            eng = Engine(dataclasses.replace(loaded.spec, quant=quant,
+                                             batch_size=b), loaded.variables)
+            x = np.resize(frames["squeeze-ernet"], (b, 140, 140, 3))
+            for _ in range(5):
+                eng(x)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            samples = []
+            for _ in range(100):
+                t0 = time.perf_counter()
+                eng(x)          # ends in a device-to-host copy: synchronised
+                samples.append((time.perf_counter() - t0) * 1e3)
+            samples.sort()
+            med, p90 = samples[49], samples[89]
+            device_ms = cuda_ms(lambda: eng.dispatch(x), 20)
+            mem = torch.cuda.max_memory_allocated()
+            say(f"latency squeeze-ernet {quant} batch {b}: median {med:.4f} "
+                f"ms, p90 {p90:.4f} ms (n=100, host clock); device "
+                f"{device_ms:.4f} ms/forward (CUDA events); peak memory "
+                f"{mem} B [{card}]")
+            if quant == "bf16":
+                engines[b] = eng, x
+        say(f"throughput squeeze-ernet {quant} batch 256: {256e3 / med:.1f} "
+            f"frames/s (median) [{card}]")
     return engines
 
 
@@ -428,9 +577,9 @@ def main() -> int:
     counts = tensor_core_instructions(kernels.library_path("acff"))
     say(f"build: tensor-core instructions in the library (cuobjdump -sass): "
         f"{counts}")
-    if not sum(counts.values()):
-        raise AssertionError("the ACFF library has no HGMMA or HMMA "
-                             "instruction")
+    if not counts["HGMMA"] or not counts["HGMMA_TF32"]:
+        raise AssertionError("the ACFF library lacks the bf16 or the TF32 "
+                             "HGMMA (wgmma) instructions")
 
     # 3. kernel vs plain
     records = phase_kernels({"fp32": torch.float32, "bf16": torch.bfloat16})
@@ -448,7 +597,7 @@ def main() -> int:
         say(f"preprocess {s}: max |d| vs the golden's frames = {diff} "
             f"(PIL resampling of this machine)")
     frames = {m: by_size[240 if m == "ernet" else 140] for m in MODELS}
-    launches = phase_end_to_end(frames, golden)
+    launches, real = phase_end_to_end(frames, golden)
 
     # 5. timing
     engines = phase_timing(frames, card)
@@ -486,6 +635,8 @@ def main() -> int:
                                   if p.split("/")[1].startswith(quant)},
             "per_shape": [r for r in records if r["quant"] == quant],
         })
+        if quant == "fp32":
+            kernels_line[-1]["real_inputs"] = real
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(f"card: {card}")
     say(json.dumps({"kernels": kernels_line}))

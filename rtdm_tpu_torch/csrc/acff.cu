@@ -45,11 +45,50 @@
 //   Squeeze_ErNET blocks (chip_smoke.py, same card): the depthwise pass,
 //   bound by shared-memory loads, is the largest phase.
 //
-// fp32 kernel (acff_fp32_kernel), the first design, kept because the fp32
-// engine must stay full fp32 (no TF32): a block owns an 8x8 tile and a
-// slice of OT output channels and walks the input channels in chunks of
-// KC, staging the chunk's halo, computing its 3*KC features into shared
-// memory and accumulating their product with fuse_w on fp32 FMAs.
+// fp32 kernel (acff_fp32_kernel<O/2>), full fp32 accuracy: the fp32
+// engine turns TF32 off, so the fuse product runs as 3xTF32. Bound: at
+// batch 256 the first Squeeze_ErNET block by bytes, the others by the
+// tensor cores (3 x 2*P*3C*O operations over 495 TFLOP/s of TF32); the
+// first design (an 8x8 tile x a slice of O on fp32 FMAs) took 0.751,
+// 1.234, 0.424 and 0.276 ms at the four blocks against a bound of 0.111,
+// 0.055, 0.019 and 0.0049 ms (chip_smoke.py, H100 80GB HBM3 at 700 W),
+// recomputing every feature for each slice of O. The design:
+// - the bf16 kernel's tile: 64 output pixels (tile_plan) and all O a
+//   block, persistent blocks, two warpgroups of N = O/2.
+// - the input channels go in chunks of KC = 16 (8 where C is not a
+//   multiple of 16; ops/acff.py::fp32_chunk), since a whole fp32 box, A
+//   and B do not fit 227 KB. Per chunk a 4-D TMA box of KC channels
+//   arrives (double-buffered across chunks and tiles; zero fill is the
+//   padding and the channels past C), and its 3*KC depthwise features are
+//   computed once per pixel in fp32 from the chunk's weights in shared
+//   memory (loaded during the previous chunk's product; interleaved row
+//   segments that load each box column once for its taps) and split into
+//   TF32 hi = rna(v) and lo = rna(v - hi) in A.
+// - the fuse product: D += A_lo*B_hi + A_hi*B_lo + A_hi*B_hi, wgmma
+//   m64nNk8 tf32 from shared memory, fp32 sums in registers (A_lo*B_lo,
+//   ~2^-22 relative, is dropped). The tensor cores round each sum they
+//   carry toward zero, a bias of the sum's sign that real activations
+//   carry from block to block (summed over a whole chunk it read -1.6e-7
+//   to -3.6e-7 of mean |out| on the golden frames' activations, and the
+//   fp32 engines' logits 2.5-20x further from the JAX golden than with
+//   the first FMA kernel). So each k step (8 rows) is a run of its own,
+//   summed from zero and added to the total in fp32, rounded to nearest:
+//   -3.2e-8 to -4.5e-8, the logits within 1.5x of the FMA kernel's
+//   distance (chip_smoke.py, scripts/acff_phase_times.py). Two runs are
+//   in flight in two register sets (chunk_product), so that one run's add
+//   overlaps the next run's product. B's hi and lo are made on the host
+//   (ops/acff.py::pack_fuse_operand_tf32) in chunk order, and a chunk
+//   (3KC x O, hi then lo) arrives by cp.async.bulk into one buffer during
+//   the next chunk's depthwise; where C is one chunk it is loaded once.
+// - the epilogue (bias, LeakyReLU, scale/shift in fp32) stores from the
+//   accumulators: four lanes fill each 32-byte sector of a pixel's row
+//   (staging in shared memory and 16-byte stores measured slower,
+//   PERF.md).
+// This design took 0.325, 0.252, 0.102 and 0.044 ms at the four
+// Squeeze_ErNET blocks (chip_smoke.py, same card; 5% over whole-chunk
+// runs), max |out - fp64| under 4e-7 of max |out|; the depthwise pass is
+// still its largest phase (scripts/acff_phase_times.py --quant fp32).
+// ops/acff.py::fp32_smem_bytes mirrors the shared-memory layout (FSmem).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -60,147 +99,6 @@
 #include <type_traits>
 
 namespace {
-
-// ------------------------------------------------------------- fp32 kernel
-
-constexpr int TH = 8;                // output tile rows
-constexpr int TW = 8;                // output tile columns
-constexpr int TP = TH * TW;          // output pixels per block
-constexpr int HH = TH + 6;           // halo rows: branch 3 reaches 2 up, 4 down
-constexpr int HW = TW + 6;           // halo columns
-constexpr int PLANE = HH * HW + 1;   // odd stride: channel planes on distinct banks
-constexpr int KC = 16;               // input channels per chunk
-constexpr int KF = 3 * KC;           // features per chunk (three branches)
-constexpr int THREADS = 256;         // 16 pixel groups x 16 channel groups
-
-template <int OT>
-__global__ void __launch_bounds__(THREADS)
-acff_fp32_kernel(const float* __restrict__ x, const float* __restrict__ dw_w,
-                 const float* __restrict__ dw_b,
-                 const float* __restrict__ fuse_w,
-                 const float* __restrict__ fuse_b,
-                 const float* __restrict__ scale,
-                 const float* __restrict__ shift, float* __restrict__ out,
-                 int H, int W, int C, int O, int tiles_w) {
-  constexpr int CPT = OT / 16;  // output channels per thread
-  __shared__ float xs[KC * PLANE];               // [channel][halo pixel]
-  __shared__ __align__(16) float feat[KF * TP];  // [feature][pixel]
-  __shared__ __align__(16) float ws[KF * OT];    // [feature][output channel]
-
-  const int OH = H - 2, OW = W - 2;
-  const int oy0 = (blockIdx.x / tiles_w) * TH;
-  const int ox0 = (blockIdx.x % tiles_w) * TW;
-  const int o0 = blockIdx.y * OT;
-  const int t = threadIdx.x;
-  const int pg = t / 16;  // pixels pg*4 .. pg*4+3 of the tile
-  const int cg = t % 16;  // channels o0 + cg*CPT .. + CPT-1
-
-  const float* xb = x + (size_t)blockIdx.z * H * W * C;
-  float acc[4][CPT];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[q][j] = 0.f;
-
-  for (int c0 = 0; c0 < C; c0 += KC) {
-    // Halo of this channel chunk; the tile's input origin is (oy0-2, ox0-2).
-    for (int i = t; i < HH * HW * KC; i += THREADS) {
-      const int cl = i % KC, pix = i / KC;
-      const int iy = oy0 - 2 + pix / HW, ix = ox0 - 2 + pix % HW;
-      const int c = c0 + cl;
-      float v = 0.f;
-      if (iy >= 0 && iy < H && ix >= 0 && ix < W && c < C)
-        v = __ldg(xb + ((size_t)iy * W + ix) * C + c);
-      xs[cl * PLANE + pix] = v;
-    }
-    // fuse_w rows of this chunk: feature d*KC + cl is concat row d*C + c.
-    for (int i = t; i < KF * OT; i += THREADS) {
-      const int o = i % OT, k = i / OT;
-      const int c = c0 + k % KC;
-      ws[i] = (c < C && o0 + o < O)
-                  ? __ldg(fuse_w + (size_t)((k / KC) * C + c) * O + o0 + o)
-                  : 0.f;
-    }
-    __syncthreads();
-
-    // Depthwise features: branch d has dilation d+1 and padding d, so output
-    // pixel (py, px) reads halo row py + 2 - d + kh*(d+1), likewise columns.
-    for (int i = t; i < KF * TP; i += THREADS) {
-      const int p = i % TP, k = i / TP;
-      const int d = k / KC, cl = k % KC, c = c0 + cl;
-      float v = 0.f;
-      if (c < C) {
-        const int dil = d + 1;
-        const int ly = p / TW + 2 - d, lx = p % TW + 2 - d;
-        const float* plane = xs + cl * PLANE;
-        const float* wk = dw_w + (size_t)d * 9 * C + c;  // dw_w[d][kh][kw][c]
-        v = __ldg(dw_b + d * C + c);
-#pragma unroll
-        for (int kh = 0; kh < 3; ++kh)
-#pragma unroll
-          for (int kw = 0; kw < 3; ++kw)
-            v = fmaf(plane[(ly + kh * dil) * HW + lx + kw * dil],
-                     __ldg(wk + (kh * 3 + kw) * C), v);
-      }
-      feat[k * TP + p] = v;
-    }
-    __syncthreads();
-
-    // acc[pixel][channel] += feat[pixel][k] * ws[k][channel]
-#pragma unroll 4
-    for (int k = 0; k < KF; ++k) {
-      const float4 f = *reinterpret_cast<const float4*>(feat + k * TP + pg * 4);
-      float wv[CPT];
-      if constexpr (CPT == 4) {
-        const float4 w4 =
-            *reinterpret_cast<const float4*>(ws + k * OT + cg * 4);
-        wv[0] = w4.x; wv[1] = w4.y; wv[2] = w4.z; wv[3] = w4.w;
-      } else {
-        const float2 w2 =
-            *reinterpret_cast<const float2*>(ws + k * OT + cg * 2);
-        wv[0] = w2.x; wv[1] = w2.y;
-      }
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) {
-        acc[0][j] = fmaf(f.x, wv[j], acc[0][j]);
-        acc[1][j] = fmaf(f.y, wv[j], acc[1][j]);
-        acc[2][j] = fmaf(f.z, wv[j], acc[2][j]);
-        acc[3][j] = fmaf(f.w, wv[j], acc[3][j]);
-      }
-    }
-    __syncthreads();
-  }
-
-  // Epilogue: bias, LeakyReLU(0.01), folded BN; ragged tile edges masked.
-  float* ob = out + (size_t)blockIdx.z * OH * OW * O;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int p = pg * 4 + q;
-    const int oy = oy0 + p / TW, ox = ox0 + p % TW;
-    if (oy >= OH || ox >= OW) continue;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int o = o0 + cg * CPT + j;
-      if (o >= O) continue;
-      float v = acc[q][j] + __ldg(fuse_b + o);
-      v = v > 0.f ? v : 0.01f * v;
-      ob[((size_t)oy * OW + ox) * O + o] = fmaf(v, __ldg(scale + o),
-                                                __ldg(shift + o));
-    }
-  }
-}
-
-template <int OT>
-void launch_fp32(const float* x, const float* dw_w, const float* dw_b,
-                 const float* fuse_w, const float* fuse_b, const float* scale,
-                 const float* shift, float* out, int B, int H, int W, int C,
-                 int O, cudaStream_t stream) {
-  const int tiles_h = (H - 2 + TH - 1) / TH;
-  const int tiles_w = (W - 2 + TW - 1) / TW;
-  const dim3 grid(tiles_h * tiles_w, (O + OT - 1) / OT, B);
-  acff_fp32_kernel<OT><<<grid, THREADS, 0, stream>>>(
-      x, dw_w, dw_b, fuse_w, fuse_b, scale, shift, out, H, W, C, O, tiles_w);
-}
 
 // ------------------------------------------------------------- bf16 kernel
 
@@ -727,6 +625,520 @@ acff_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
+// ------------------------------------------------------------- fp32 kernel
+
+// Dynamic shared memory of the fp32 kernel, in bytes from a 128-byte
+// aligned base: 3 mbarriers | two buffers of one chunk's depthwise weights
+// and biases, dw_w (27 KC) then dw_b (3 KC) fp32, zero past C | two input
+// boxes of KC channels | A, its hi part then its lo part (64
+// x 3KC TF32 values each, in core matrices F_LBO apart in K) | one B
+// chunk, hi then lo (3KC x O TF32 values each).
+// A's core matrices that follow in K lie 160 bytes apart: a quarter warp
+// of the depthwise stores 4 channel groups x 2 interleaved pixel sets,
+// which then fall on 8 distinct 16-byte bank groups.
+constexpr int F_LBO = 160;
+
+struct FSmem {
+  int kc4, apart, wts, box, boxsz, a, b, bsz, total;
+  __host__ __device__ FSmem(int KC, int O, int box_bytes) {
+    kc4 = 3 * KC / 4;
+    apart = 8 * kc4 * F_LBO;
+    wts = 128;
+    box = Smem::up128(wts + 2 * 30 * KC * 4);
+    boxsz = Smem::up128(box_bytes);
+    a = box + 2 * boxsz;
+    b = Smem::up128(a + 2 * apart);
+    bsz = 3 * KC * O * 8;
+    total = b + bsz;
+  }
+};
+
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n48(float (&d)[24], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t da,
+                                               uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D(64 x P) = A*B (scale_d 0) or D + A*B (scale_d 1), A (64 x 8) and B
+// (8 x P) TF32, both K-major in shared memory.
+template <int P>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[P / 2], uint64_t da,
+                                           uint64_t db, int scale_d) {
+  if constexpr (P == 32) wgmma_tf32_n32(d, da, db, scale_d);
+  else if constexpr (P == 48) wgmma_tf32_n48(d, da, db, scale_d);
+  else if constexpr (P == 64) wgmma_tf32_n64(d, da, db, scale_d);
+  else wgmma_tf32_n128(d, da, db, scale_d);
+}
+
+// v as hi + lo, both TF32 (fp32 bit patterns with the low 13 bits zero):
+// hi = v rounded to nearest (ties away), lo = the rest, rounded alike.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(hi) : "f"(v));
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(lo) : "f"(v - __uint_as_float(hi)));
+}
+
+// Four features of one pixel into A's hi and lo parts: one core-matrix
+// row (16 bytes) each.
+__device__ __forceinline__ void store_split(unsigned char* dst, int apart,
+                                            float a, float b, float c,
+                                            float d) {
+  uint4 hi, lo;
+  split_tf32(a, hi.x, lo.x);
+  split_tf32(b, hi.y, lo.y);
+  split_tf32(c, hi.z, lo.z);
+  split_tf32(d, hi.w, lo.w);
+  *reinterpret_cast<uint4*>(dst) = hi;
+  *reinterpret_cast<uint4*>(dst + apart) = lo;
+}
+
+// One run of the 3xTF32 product, committed as one wgmma group: one k step
+// (8 rows) of A, its lo part `apart` bytes after its hi part, times one k
+// step of B over P columns, its lo part `blo` bytes after its hi part,
+// summed on the tensor cores from zero, the two small lo terms first:
+// d = A_lo*B_hi + A_hi*B_lo + A_hi*B_hi.
+template <int P>
+__device__ __forceinline__ void tf32x3_run(float (&d)[P / 2], uint32_t a,
+                                           uint32_t b, int apart, int blo,
+                                           uint32_t a_sbo, uint32_t b_sbo) {
+  fence_operands(d);
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+  wgmma_tf32<P>(d, gmma_desc(a + apart, F_LBO, a_sbo),
+                gmma_desc(b, 128, b_sbo), 0);
+  wgmma_tf32<P>(d, gmma_desc(a, F_LBO, a_sbo),
+                gmma_desc(b + blo, 128, b_sbo), 1);
+  wgmma_tf32<P>(d, gmma_desc(a, F_LBO, a_sbo), gmma_desc(b, 128, b_sbo), 1);
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+// Waits until at most PENDING wgmma groups of the warpgroup are in flight,
+// then adds the finished run d to acc in fp32, rounded to nearest.
+template <int PENDING, int N>
+__device__ __forceinline__ void retire_run(float (&acc)[N], float (&d)[N]) {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(PENDING)
+               : "memory");
+  fence_operands(d);
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i] += d[i];
+}
+
+// The 3xTF32 product of one channel chunk, STEPS k steps (3*KC/8), into a
+// warpgroup's acc (64 x NH): one run a k step, summed from zero on the
+// tensor cores and added to acc in fp32. Two runs are in flight, in two
+// register sets, so that one run's add overlaps the next run's product.
+template <int NH, int STEPS>
+__device__ __forceinline__ void chunk_product(float (&acc)[NH / 2],
+                                              uint32_t a, uint32_t b,
+                                              int apart, int blo,
+                                              uint32_t a_sbo,
+                                              uint32_t b_sbo) {
+  float pa[NH / 2], pb[NH / 2];
+#pragma unroll
+  for (int s = 0; s < STEPS; s += 2) {
+    tf32x3_run<NH>(pa, a + 2 * s * F_LBO, b + 2 * s * 128, apart, blo,
+                   a_sbo, b_sbo);
+    if (s > 0) retire_run<1>(acc, pb);
+    if (s + 1 < STEPS) {
+      tf32x3_run<NH>(pb, a + 2 * (s + 1) * F_LBO, b + 2 * (s + 1) * 128,
+                     apart, blo, a_sbo, b_sbo);
+      retire_run<1>(acc, pa);
+    } else {
+      retire_run<0>(acc, pa);
+    }
+  }
+  if (STEPS % 2 == 0) retire_run<0>(acc, pb);
+}
+
+// Byte offset of A[m][4*k4 .. 4*k4+3] (one core-matrix row) in a part.
+__device__ __forceinline__ int af_offset(int m, int k4, int kc4) {
+  return (m >> 3) * kc4 * F_LBO + k4 * F_LBO + (m & 7) * 16;
+}
+
+// Depthwise branch D of a spatial tile (8x8 pixels, a 14x14 box of KC
+// channels from (oy0-2, ox0-2)) for the SEG pixels px0, px0 + 8/SEG, ...
+// of tile row py and chunk channels 4q..4q+3, split into A; wts holds the
+// chunk's weights, rows of KC. Pixel px, tap
+// (kh, kw) reads box row py+2-D+kh*S, column px+2-D+kw*S (S = D+1); each
+// box column of a tap row is loaded once (16 bytes) for every (pixel, kw)
+// that reads it. The pixels are interleaved, not contiguous, so that
+// neighbouring threads (the other pixel sets of the row) read columns 64
+// or 32 bytes apart: no bank conflicts, at about the same loads per FMA.
+template <int D, int SEG>
+__device__ __forceinline__ void dw_row_f32(const float* box, const float* wts,
+                                           unsigned char* a_s, int apart,
+                                           int KC, int q, int py, int px0,
+                                           int kc4) {
+  constexpr int S = D + 1, ST = 8 / SEG, HX = 14;
+  constexpr int NCOL = (SEG - 1) * ST + 2 * S + 1;
+  const int ch = q * 4;
+  float acc[SEG][4];
+  const float4 bias =
+      *reinterpret_cast<const float4*>(wts + (27 + D) * KC + ch);
+#pragma unroll
+  for (int j = 0; j < SEG; ++j) {
+    acc[j][0] = bias.x; acc[j][1] = bias.y;
+    acc[j][2] = bias.z; acc[j][3] = bias.w;
+  }
+#pragma unroll
+  for (int kh = 0; kh < 3; ++kh) {
+    const float* row =
+        box + ((py + 2 - D + kh * S) * HX + px0 + 2 - D) * KC + q * 4;
+    float4 w[3];
+#pragma unroll
+    for (int kw = 0; kw < 3; ++kw)
+      w[kw] = *reinterpret_cast<const float4*>(
+          wts + ((D * 3 + kh) * 3 + kw) * KC + ch);
+#pragma unroll
+    for (int c = 0; c < NCOL; ++c) {
+      bool used = false;
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) {
+        const int t = c - kw * S;
+        used |= t >= 0 && t % ST == 0 && t / ST < SEG;
+      }
+      if (!used) continue;
+      const float4 v = *reinterpret_cast<const float4*>(row + c * KC);
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) {
+        const int t = c - kw * S, j = t / ST;
+        if (t < 0 || t % ST != 0 || j >= SEG) continue;
+        acc[j][0] = fmaf(v.x, w[kw].x, acc[j][0]);
+        acc[j][1] = fmaf(v.y, w[kw].y, acc[j][1]);
+        acc[j][2] = fmaf(v.z, w[kw].z, acc[j][2]);
+        acc[j][3] = fmaf(v.w, w[kw].w, acc[j][3]);
+      }
+    }
+  }
+  // A[py*8 + px0 + j*ST][D*KC + 4q ..]: one core-matrix row each.
+  unsigned char* dst = a_s + af_offset(py * 8 + px0, D * (KC >> 2) + q, kc4);
+#pragma unroll
+  for (int j = 0; j < SEG; ++j)
+    store_split(dst + j * ST * 16, apart, acc[j][0], acc[j][1], acc[j][2],
+                acc[j][3]);
+}
+
+// The three branches of a spatial tile for one channel chunk: 192 items of
+// (branch, row, pixel set, 4 channels), the channel groups and then the
+// pixel sets on neighbouring threads.
+template <int SEG>
+__device__ __forceinline__ void dw_rows_f32(const float* box,
+                                            const float* wts,
+                                            unsigned char* a_s, int apart,
+                                            int KC, int kc4, int tid) {
+  constexpr int ST = 8 / SEG;
+  const int KC4 = KC >> 2;
+  for (int i = tid; i < 3 * 8 * ST * KC4; i += BTHREADS) {
+    const int q = i % KC4, r = i / KC4, px0 = r % ST, py = (r / ST) & 7;
+    const int d = r / (8 * ST);
+    if (d == 0)
+      dw_row_f32<0, SEG>(box, wts, a_s, apart, KC, q, py, px0, kc4);
+    else if (d == 1)
+      dw_row_f32<1, SEG>(box, wts, a_s, apart, KC, q, py, px0, kc4);
+    else
+      dw_row_f32<2, SEG>(box, wts, a_s, apart, KC, q, py, px0, kc4);
+  }
+}
+
+// Depthwise branch d of one pixel of a whole-image tile (the box is the
+// image, KC channels) for chunk channels 4g..4g+3; taps outside the image
+// are zero.
+__device__ __forceinline__ float4 dw_pixel_f32(const float* box,
+                                               const float* wts,
+                                               const Plan& pl, int KC,
+                                               int img, int py, int px, int d,
+                                               int g) {
+  const int ch = g * 4;
+  float4 acc = *reinterpret_cast<const float4*>(wts + (27 + d) * KC + ch);
+  const int step = d + 1;
+  const float* src = box + (size_t)img * pl.hy * pl.hx * KC + g * 4;
+#pragma unroll
+  for (int kh = 0; kh < 3; ++kh) {
+    const int ly = py - d + kh * step;
+    if ((unsigned)ly >= (unsigned)pl.hy) continue;
+#pragma unroll
+    for (int kw = 0; kw < 3; ++kw) {
+      const int lx = px - d + kw * step;
+      if ((unsigned)lx >= (unsigned)pl.hx) continue;
+      const float4 v =
+          *reinterpret_cast<const float4*>(src + (ly * pl.hx + lx) * KC);
+      const float4 w = *reinterpret_cast<const float4*>(
+          wts + ((d * 3 + kh) * 3 + kw) * KC + ch);
+      acc.x = fmaf(v.x, w.x, acc.x);
+      acc.y = fmaf(v.y, w.y, acc.y);
+      acc.z = fmaf(v.z, w.z, acc.z);
+      acc.w = fmaf(v.w, w.w, acc.w);
+    }
+  }
+  return acc;
+}
+
+// One block owns 64 output pixels and all O, and walks the input channels
+// in chunks of KC (8 or 16): per chunk, the chunk's box arrives by TMA,
+// its 3*KC features are computed once per pixel and split into A (hi,
+// lo), and the chunk's B (hi, lo) is multiplied in as 3xTF32:
+// D += A_lo*B_hi + A_hi*B_lo + A_hi*B_hi. The next box is in flight
+// during a chunk (two buffers), the next B chunk during the next
+// depthwise (one buffer; loaded once where C is one chunk).
+template <int NH>
+__global__ void __launch_bounds__(BTHREADS, NH <= 64 ? 2 : 1)
+acff_fp32_kernel(const __grid_constant__ CUtensorMap xmap,
+                 const float* __restrict__ dw_w, const float* __restrict__ dw_b,
+                 const float* __restrict__ fuse_op,
+                 const float* __restrict__ fuse_b,
+                 const float* __restrict__ scale,
+                 const float* __restrict__ shift, float* __restrict__ out,
+                 int B, int H, int W, int C, int KC, const Plan pl,
+                 int n_tiles) {
+  constexpr int O = 2 * NH;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  unsigned char* sm = smem_raw + (((raw + 127u) & ~127u) - raw);
+  const int nchunks = (C + KC - 1) / KC, KC4 = KC >> 2;
+  const int box_bytes = pl.images * pl.hy * pl.hx * KC * 4;
+  const FSmem L(KC, O, box_bytes);
+  float* wbuf = reinterpret_cast<float*>(sm + L.wts);
+  unsigned char* a_s = sm + L.a;
+  // mbarriers: box buffers 0 and 1, then the B chunk
+  const uint32_t bar_box = smem_u32(sm), bar_b = bar_box + 16;
+
+  const int tid = threadIdx.x;
+  const int OH = H - 2, OW = W - 2;
+  const int per_image = pl.tiles_h * pl.tiles_w;
+  const int my_tiles = (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
+  // a use is one (tile, chunk) of this block, in order; use u reads box
+  // buffer u & 1 and, where C is more than one chunk, B load number u
+  const int uses = my_tiles * nchunks;
+
+  auto issue_box = [&](int u) {   // one thread: the box of use u
+    const int it = u / nchunks, c = u - it * nchunks;
+    const int t = blockIdx.x + it * gridDim.x, rem = t % per_image;
+    const uint32_t bar = bar_box + 8 * (u & 1);
+    const uint32_t dst = smem_u32(sm + L.box + (u & 1) * L.boxsz);
+    mbar_expect_tx(bar, box_bytes);
+    tma_load_box(dst, &xmap, bar, c * KC, rem % pl.tiles_w * pl.tw - pl.origin,
+                 rem / pl.tiles_w * pl.th - pl.origin,
+                 t / per_image * pl.images);
+  };
+  auto issue_b = [&](int c) {     // one thread: B chunk c
+    mbar_expect_tx(bar_b, L.bsz);
+    bulk_load(smem_u32(sm + L.b), fuse_op + (size_t)c * (L.bsz / 4), L.bsz,
+              bar_b);
+  };
+
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) mbar_init(bar_box + 8 * i);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_async_smem();
+    for (int u = 0; u < 2 && u < uses; ++u) issue_box(u);
+    if (uses > 0) issue_b(0);
+  }
+  // One chunk's depthwise weights and biases, rows dw_w[d][kh][kw] then
+  // dw_b[d] of its KC channels, zero past C: 30*KC <= 480 values, thread
+  // t fetches values t and t + 256 into registers, and puts them into a
+  // buffer later. Where C is more than one chunk, the next use's are
+  // fetched before a use's product and put after it, into the other
+  // buffer, so that the product hides their latency.
+  auto fetch_weights = [&](float (&w)[2], int c) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int i = tid + k * BTHREADS, r = i / KC;
+      const int ch = c * KC + i - r * KC;
+      w[k] = i >= 30 * KC || ch >= C ? 0.f
+             : r < 27 ? __ldg(dw_w + r * C + ch)
+                      : __ldg(dw_b + (r - 27) * C + ch);
+    }
+  };
+  auto put_weights = [&](const float (&w)[2], int buf) {
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      if (tid + k * BTHREADS < 30 * KC)
+        wbuf[buf * 30 * KC + tid + k * BTHREADS] = w[k];
+  };
+  float wnext[2];
+  fetch_weights(wnext, 0);
+  put_weights(wnext, 0);
+  __syncthreads();
+
+  const int wg = tid >> 7;
+  const uint32_t a_base = smem_u32(a_s);
+  const uint32_t b_base = smem_u32(sm + L.b) + wg * (NH / 8) * L.kc4 * 128;
+  const uint32_t a_sbo = L.kc4 * F_LBO, b_sbo = L.kc4 * 128;
+  int u = 0;
+  for (int it = 0; it < my_tiles; ++it) {
+    const int t = blockIdx.x + it * gridDim.x, rem = t % per_image;
+    const int b0 = t / per_image * pl.images;
+    const int oy0 = rem / pl.tiles_w * pl.th, ox0 = rem % pl.tiles_w * pl.tw;
+    float acc[NH / 2];
+#pragma unroll
+    for (int i = 0; i < NH / 2; ++i) acc[i] = 0.f;
+
+    for (int c = 0; c < nchunks; ++c, ++u) {
+      const float* box =
+          reinterpret_cast<const float*>(sm + L.box + (u & 1) * L.boxsz);
+      const float* wts = wbuf + (nchunks > 1 ? (u & 1) * 30 * KC : 0);
+      mbar_wait(bar_box + 8 * (u & 1), (u >> 1) & 1);
+      if (pl.origin == 2) {
+        if (KC == 16)
+          dw_rows_f32<4>(box, wts, a_s, L.apart, KC, L.kc4, tid);
+        else
+          dw_rows_f32<2>(box, wts, a_s, L.apart, KC, L.kc4, tid);
+      } else {
+        // Whole images: one (branch d, pixel p, 4 channels g) an item, the
+        // eight pixels of a core-matrix row block on neighbouring threads.
+        for (int i = tid; i < 3 * BM * KC4; i += BTHREADS) {
+          const int j = i & 7, pr = (i >> 3) & 7, r = i >> 6;
+          const int d = r / KC4, g = (r % KC4 + j) % KC4, p = pr * 8 + j;
+          int img, py, px;
+          const float4 v =
+              tile_pixel(pl, p, b0, oy0, ox0, B, OH, OW, img, py, px)
+                  ? dw_pixel_f32(box, wts, pl, KC, img, py, px, d, g)
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+          store_split(a_s + af_offset(p, d * KC4 + g, L.kc4), L.apart, v.x,
+                      v.y, v.z, v.w);
+        }
+      }
+      fence_async_smem();   // A's generic stores, then wgmma's async reads
+      __syncthreads();      // and the box and weights of use u are read
+      if (tid == 0 && u + 2 < uses) issue_box(u + 2);
+      const bool next_weights = nchunks > 1 && u + 1 < uses;
+      if (next_weights) fetch_weights(wnext, (c + 1) % nchunks);
+
+      // 3xTF32 over this chunk's 3*KC rows, warpgroup wg computing output
+      // channels [wg*NH, +NH). The tensor cores round each sum they carry
+      // toward zero: a bias of the sign of the sum, which real activations
+      // (not centred on zero) carry from block to block. So the product
+      // runs one k step a run, each summed from zero and added to acc in
+      // fp32, rounded to nearest (chunk_product).
+      mbar_wait(bar_b, nchunks > 1 ? (u & 1) : 0);
+      if (KC == 16)
+        chunk_product<NH, 6>(acc, a_base, b_base, L.apart, L.bsz / 2, a_sbo,
+                             b_sbo);
+      else
+        chunk_product<NH, 3>(acc, a_base, b_base, L.apart, L.bsz / 2, a_sbo,
+                             b_sbo);
+      if (next_weights) put_weights(wnext, (u + 1) & 1);
+      __syncthreads();      // both warpgroups are done with A and B
+      if (tid == 0 && nchunks > 1 && u + 1 < uses) issue_b((c + 1) % nchunks);
+    }
+
+    // Epilogue from the accumulators, stored straight to device memory:
+    // accumulator d[4n + 2i + e] is row warp*16 + lane/4 + 8i, column
+    // 8n + 2*(lane%4) + e of this warpgroup's N, so the four lanes of a
+    // row write one whole 32-byte sector with 8-byte stores. No staging:
+    // no shared-memory pass and no barrier (A is free once both
+    // warpgroups' products are done, the barrier above).
+    const int lane = tid & 31, row0 = ((tid & 127) >> 5) * 16 + (lane >> 2);
+    float* dst[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      int img, py, px;
+      dst[i] = tile_pixel(pl, row0 + 8 * i, b0, oy0, ox0, B, OH, OW, img, py,
+                          px)
+                   ? out + (((size_t)(b0 + img) * OH + oy0 + py) * OW + ox0 +
+                            px) * O
+                   : nullptr;
+    }
+#pragma unroll
+    for (int n = 0; n < NH / 8; ++n) {
+      const int col = wg * NH + n * 8 + (lane & 3) * 2;
+      const float2 fb = *reinterpret_cast<const float2*>(fuse_b + col);
+      const float2 sc = *reinterpret_cast<const float2*>(scale + col);
+      const float2 sh = *reinterpret_cast<const float2*>(shift + col);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float v0 = acc[4 * n + 2 * i] + fb.x;
+        float v1 = acc[4 * n + 2 * i + 1] + fb.y;
+        v0 = v0 > 0.f ? v0 : 0.01f * v0;
+        v1 = v1 > 0.f ? v1 : 0.01f * v1;
+        if (dst[i] != nullptr)
+          *reinterpret_cast<float2*>(dst[i] + col) =
+              make_float2(fmaf(v0, sc.x, sh.x), fmaf(v1, sc.y, sh.y));
+      }
+    }
+  }
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
                                  cuuint32_t, void*, const cuuint64_t*,
                                  const cuuint64_t*, const cuuint32_t*,
@@ -751,20 +1163,19 @@ EncodeTiled encode_tiled() {
 // Allows `bytes` of dynamic shared memory (above 48 KB once per kernel)
 // and gives the blocks that fit on one SM; the last answer is kept, since
 // one model calls each width at one or two sizes.
-template <int NH>
+template <auto Kernel>
 cudaError_t configure(int bytes, int* per_sm) {
   if (bytes > 227 * 1024) return cudaErrorInvalidValue;
   static int allowed = 48 * 1024, last_bytes = -1, last_per_sm = 0;
   if (bytes > allowed) {
     const cudaError_t e = cudaFuncSetAttribute(
-        acff_bf16_kernel<NH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        227 * 1024);
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 227 * 1024);
     if (e != cudaSuccess) return e;
     allowed = 227 * 1024;
   }
   if (bytes != last_bytes) {
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &last_per_sm, acff_bf16_kernel<NH>, BTHREADS, bytes);
+        &last_per_sm, Kernel, BTHREADS, bytes);
     if (e != cudaSuccess) return e;
     if (last_per_sm < 1) return cudaErrorInvalidConfiguration;
     last_bytes = bytes;
@@ -787,38 +1198,57 @@ cudaError_t sm_count(int* sms) {
   return e;
 }
 
+// The input box as a TMA tensor map over NHWC x: images x hy x hx pixels
+// of `inner` channels from channel c0 (given at each load), channels
+// innermost (`inner` * esize bytes, a multiple of 16). A box start outside
+// the image or past C is zero filled.
+cudaError_t encode_box(CUtensorMap* map, CUtensorMapDataType type, int esize,
+                       const void* x, int B, int H, int W, int C, int inner,
+                       const Plan& pl) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * esize,
+                                 (cuuint64_t)W * C * esize,
+                                 (cuuint64_t)H * W * C * esize};
+  const cuuint32_t boxdim[4] = {(cuuint32_t)inner, (cuuint32_t)pl.hx,
+                                (cuuint32_t)pl.hy, (cuuint32_t)pl.images};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  if (encode(map, type, 4, const_cast<void*>(x), dims, strides, boxdim, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
+}
+
+// Persistent grid: as many blocks as fit on the card at once (at most one
+// a tile), each walking the tiles t = blockIdx.x, + gridDim.x, ...
+template <auto Kernel>
+cudaError_t persistent_grid(int bytes, int n_tiles, int* grid) {
+  int sms = 0, per_sm = 0;
+  cudaError_t e = configure<Kernel>(bytes, &per_sm);
+  if (e == cudaSuccess) e = sm_count(&sms);
+  *grid = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
+  return e;
+}
+
 template <int NH>
 cudaError_t launch_bf16(const void* x, const float* dw_w, const float* dw_b,
                         const void* fuse_op, const float* fuse_b,
                         const float* scale, const float* shift, void* out,
                         int B, int H, int W, int C, const Plan& pl,
                         int n_tiles, cudaStream_t stream) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return cudaErrorNotSupported;
-  // The box: images x hy x hx pixels of C channels, C innermost (a row of
-  // C*2 bytes, at least 16). A box start outside the image is zero filled.
   CUtensorMap map;
-  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
-                              (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)W * C * 2,
-                                 (cuuint64_t)H * W * C * 2};
-  const cuuint32_t boxdim[4] = {(cuuint32_t)C, (cuuint32_t)pl.hx,
-                                (cuuint32_t)pl.hy, (cuuint32_t)pl.images};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x),
-             dims, strides, boxdim, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return cudaErrorInvalidValue;
+  cudaError_t e = encode_box(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, B,
+                             H, W, C, C, pl);
   const int bytes =
       Smem(C, 2 * NH, pl.images * pl.hy * pl.hx * C * 2).total + 128;
-  int sms = 0, per_sm = 0;
-  cudaError_t e = configure<NH>(bytes, &per_sm);
-  if (e == cudaSuccess) e = sm_count(&sms);
+  int grid = 0;
+  if (e == cudaSuccess)
+    e = persistent_grid<acff_bf16_kernel<NH>>(bytes, n_tiles, &grid);
   if (e != cudaSuccess) return e;
-  // Persistent: as many blocks as fit on the card at once, each walking
-  // the tiles t = blockIdx.x, + gridDim.x, ...
-  const int grid = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
   acff_bf16_kernel<NH><<<grid, BTHREADS, bytes, stream>>>(
       map, dw_w, dw_b, static_cast<const __nv_bfloat16*>(fuse_op), fuse_b,
       scale, shift, static_cast<__nv_bfloat16*>(out), B, H, W, C, pl,
@@ -826,7 +1256,38 @@ cudaError_t launch_bf16(const void* x, const float* dw_w, const float* dw_b,
   return cudaGetLastError();
 }
 
-// f(std::integral_constant<int, O/2>) for the widths the bf16 kernel has.
+// The fp32 kernel's channel chunk: 16 where C is a multiple of 16, else 8
+// (ops/acff.py::fp32_chunk, which packs B for it).
+int fp32_chunk(int C) { return C % 16 ? 8 : 16; }
+
+int fp32_smem(int C, int O, const Plan& pl) {
+  const int KC = fp32_chunk(C);
+  return FSmem(KC, O, pl.images * pl.hy * pl.hx * KC * 4).total + 128;
+}
+
+template <int NH>
+cudaError_t launch_fp32(const void* x, const float* dw_w, const float* dw_b,
+                        const void* fuse_op, const float* fuse_b,
+                        const float* scale, const float* shift, void* out,
+                        int B, int H, int W, int C, const Plan& pl,
+                        int n_tiles, cudaStream_t stream) {
+  const int KC = fp32_chunk(C);
+  CUtensorMap map;
+  cudaError_t e = encode_box(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, x, B,
+                             H, W, C, KC, pl);
+  const int bytes = fp32_smem(C, 2 * NH, pl);
+  int grid = 0;
+  if (e == cudaSuccess)
+    e = persistent_grid<acff_fp32_kernel<NH>>(bytes, n_tiles, &grid);
+  if (e != cudaSuccess) return e;
+  acff_fp32_kernel<NH><<<grid, BTHREADS, bytes, stream>>>(
+      map, dw_w, dw_b, static_cast<const float*>(fuse_op), fuse_b, scale,
+      shift, static_cast<float*>(out), B, H, W, C, KC, pl, n_tiles);
+  return cudaGetLastError();
+}
+
+// f(std::integral_constant<int, O/2>) for the widths the kernels have: O =
+// 64, 96, 128 and 256.
 template <class F>
 cudaError_t by_width(int O, F&& f) {
   switch (O) {
@@ -842,31 +1303,18 @@ cudaError_t by_width(int O, F&& f) {
 
 // Plain C interface, loaded with ctypes. Launches on `stream`, allocates
 // nothing, does not synchronise; returns a CUDA error code (0 on success).
-// fp32 x reads fuse_w; bf16 x reads fuse_op (ops/acff.py::pack_fuse_operand)
-// and the tile plan (th .. n_tiles, ops/acff.py::tile_plan), which fp32
-// ignores.
+// fuse_op is fuse_w packed for the kernel of x's dtype
+// (ops/acff.py::pack_fuse_operand for bf16, pack_fuse_operand_tf32 for
+// fp32, in chunks of fp32_chunk(C) channels); th .. n_tiles are the tile
+// plan (ops/acff.py::tile_plan).
 extern "C" int acff_infer_launch(const void* x, const float* dw_w,
-                                 const float* dw_b, const float* fuse_w,
-                                 const void* fuse_op, const float* fuse_b,
-                                 const float* scale, const float* shift,
-                                 void* out, int B, int H, int W, int C, int O,
-                                 int x_is_bf16, int th, int tw, int images,
-                                 int tiles_h, int tiles_w, int hy, int hx,
-                                 int origin, int n_tiles, void* stream) {
-  if (B < 1 || B > 65535 || H < 3 || W < 3 || C < 1 || O < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!x_is_bf16) {
-    const float* xf = static_cast<const float*>(x);
-    float* of = static_cast<float*>(out);
-    if (O % 64 == 0)
-      launch_fp32<64>(xf, dw_w, dw_b, fuse_w, fuse_b, scale, shift, of, B, H,
-                      W, C, O, s);
-    else
-      launch_fp32<32>(xf, dw_w, dw_b, fuse_w, fuse_b, scale, shift, of, B, H,
-                      W, C, O, s);
-    return static_cast<int>(cudaGetLastError());
-  }
+                                 const float* dw_b, const void* fuse_op,
+                                 const float* fuse_b, const float* scale,
+                                 const float* shift, void* out, int B, int H,
+                                 int W, int C, int O, int x_is_bf16, int th,
+                                 int tw, int images, int tiles_h, int tiles_w,
+                                 int hy, int hx, int origin, int n_tiles,
+                                 void* stream) {
   const Plan pl{th, tw, images, tiles_h, tiles_w, hy, hx, origin};
   const int per_batch = (B + images - 1) / (images > 0 ? images : 1);
   // The two tile shapes of tile_plan: 8x8 spatial tiles with a 14x14 box
@@ -876,10 +1324,20 @@ extern "C" int acff_infer_launch(const void* x, const float* dw_w,
   const bool whole = origin == 0 && tiles_h == 1 && tiles_w == 1 &&
                      th == H - 2 && tw == W - 2 && hy == H && hx == W &&
                      th * tw * images <= BM;
-  if (fuse_op == nullptr || C % 8 || C > 256 || H > 256 || W > 256 ||
-      images < 1 || !(spatial || whole) ||
+  if (B < 1 || B > 65535 || H < 3 || W < 3 || C < 1 || H > 256 || W > 256 ||
+      fuse_op == nullptr || images < 1 || !(spatial || whole) ||
       n_tiles != per_batch * tiles_h * tiles_w)
     return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!x_is_bf16) {
+    if (C % 4) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(by_width(O, [&](auto nh) {
+      return launch_fp32<decltype(nh)::value>(x, dw_w, dw_b, fuse_op, fuse_b,
+                                              scale, shift, out, B, H, W, C,
+                                              pl, n_tiles, s);
+    }));
+  }
+  if (C % 8 || C > 256) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(by_width(O, [&](auto nh) {
     return launch_bf16<decltype(nh)::value>(x, dw_w, dw_b, fuse_op, fuse_b,
                                             scale, shift, out, B, H, W, C, pl,
@@ -894,7 +1352,19 @@ extern "C" int acff_bf16_footprint(int C, int O, int box_bytes,
   return static_cast<int>(by_width(O, [&](auto nh) {
     constexpr int NH = decltype(nh)::value;
     *smem_bytes = Smem(C, 2 * NH, box_bytes).total + 128;
-    return configure<NH>(*smem_bytes, blocks_per_sm);
+    return configure<acff_bf16_kernel<NH>>(*smem_bytes, blocks_per_sm);
+  }));
+}
+
+// The fp32 kernel's dynamic shared memory for C, O and the tile plan's box
+// (images x hy x hx pixels), and how many of its blocks fit on one SM.
+extern "C" int acff_fp32_footprint(int C, int O, int images, int hy, int hx,
+                                   int* smem_bytes, int* blocks_per_sm) {
+  const Plan pl{0, 0, images, 0, 0, hy, hx, 0};
+  return static_cast<int>(by_width(O, [&](auto nh) {
+    constexpr int NH = decltype(nh)::value;
+    *smem_bytes = fp32_smem(C, 2 * NH, pl);
+    return configure<acff_fp32_kernel<NH>>(*smem_bytes, blocks_per_sm);
   }));
 }
 

@@ -7,8 +7,8 @@ LeakyReLU(0.01) BEFORE BatchNorm; Dropout is identity at inference.
 
 The forward runs the whole block as one fused call, ``ops.acff.acff_infer``:
 the hand-written kernel on a CUDA tensor, its plain version on a CPU tensor.
-The kernel's folded fp32 arguments, and for bf16 parameters the bf16
-kernel's packed fuse_w, are made at the first forward and again after
+The kernel's folded fp32 arguments, and fuse_w packed for the kernel of
+the parameters' dtype, are made at the first forward and again after
 ``load_state_dict`` or a move (``.to``, ``.cuda``); weights changed in
 place without either are not seen.
 """
@@ -22,7 +22,8 @@ from torch import nn
 
 from rtdm_tpu_torch.models.layers import BatchNorm, Conv, DepthwiseConv
 from rtdm_tpu_torch.ops.acff import (Packed, acff_infer, pack_acff_params,
-                                     pack_fuse_operand)
+                                     pack_fuse_operand,
+                                     pack_fuse_operand_tf32)
 
 
 class ACFF(nn.Module):
@@ -45,15 +46,16 @@ class ACFF(nn.Module):
 
     def packed(self) -> Packed:
         """The kernel's arguments for the loaded tensors: the fp32 ones of
-        ``pack_acff_params``, then fuse_w in the bf16 kernel's B layout
-        (``pack_fuse_operand``) where the parameters are bf16, else None."""
+        ``pack_acff_params``, then fuse_w in the B layout of the kernel of
+        the parameters' dtype: ``pack_fuse_operand`` for bf16,
+        ``pack_fuse_operand_tf32`` for fp32."""
         if self._packed is None:
             state = {**dict(self.named_parameters()),
                      **dict(self.named_buffers())}
             args = pack_acff_params(state, self.batch_norm.epsilon)
             bf16 = self.fused_conv.weight.dtype == torch.bfloat16
-            self._packed = (*args,
-                            pack_fuse_operand(args[2]) if bf16 else None)
+            pack = pack_fuse_operand if bf16 else pack_fuse_operand_tf32
+            self._packed = (*args, pack(args[2]))
         return self._packed
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

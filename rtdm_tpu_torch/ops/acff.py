@@ -8,11 +8,17 @@ an NHWC batch, three 3x3 depthwise convs at dilation 1/2/3 with padding
 BN ``out*scale + shift``; out is (B, H-2, W-2, O) in x's dtype.
 
 On a CUDA tensor it launches ``csrc/acff.cu`` or raises; on a CPU tensor it
-runs ``acff_infer_plain``. Two kernels sit behind the one C entry point:
+runs ``acff_infer_plain``. Two kernels sit behind the one C entry point,
+both with the fuse product on tensor cores (``wgmma``):
 
-- fp32 x: FMA kernel, every C and O, all in fp32, the output rounded once;
-- bf16 x: tensor-core kernel (``wgmma``), C a multiple of 8, O in
-  ``BF16_WIDTHS``, and a block's shared memory (``bf16_smem_bytes``)
+- fp32 x: 3xTF32 kernel, C a multiple of 4, O in ``WIDTHS``, a
+  block's shared memory (``fp32_smem_bytes``) within ``SMEM_LIMIT``
+  (channels stream in chunks, so C does not enter it: every shape of the
+  models fits with room to spare); full fp32 accuracy: the depthwise and
+  the epilogue are fp32 FMAs, the fuse product sums A_lo*B_hi + A_hi*B_lo
+  + A_hi*B_hi of TF32 halves (``pack_fuse_operand_tf32`` splits fuse_w);
+- bf16 x: C a multiple of 8, O in
+  ``WIDTHS``, and a block's shared memory (``bf16_smem_bytes``)
   within ``SMEM_LIMIT``: on an 8x8 tile C <= 144 at O <= 128 and C <= 120
   at O = 256, more where whole small images are packed (every ACFF block
   of the three models fits). The depthwise
@@ -21,10 +27,12 @@ runs ``acff_infer_plain``. Two kernels sit behind the one C entry point:
   from ``pack_fuse_operand``'s layout; the epilogue is fp32 and the output
   is rounded once.
 
-The host side of the bf16 kernel lives here, where the CPU tests reach it:
-``tile_plan`` (which output pixels one thread block owns),
-``pack_fuse_operand`` (fuse_w in the kernel's shared-memory B layout) and
-``bf16_smem_bytes`` (the kernel's shared-memory layout, by size).
+The host side of the kernels lives here, where the CPU tests reach it:
+``tile_plan`` (which output pixels one thread block owns, both kernels),
+``pack_fuse_operand`` / ``pack_fuse_operand_tf32`` (fuse_w in each
+kernel's shared-memory B layout), ``fp32_chunk`` (the fp32 kernel's
+channels a pass) and ``bf16_smem_bytes`` / ``fp32_smem_bytes`` (each
+kernel's shared-memory layout, by size).
 """
 
 from __future__ import annotations
@@ -41,44 +49,111 @@ from rtdm_tpu_torch.ops.kernels import CudaKernel
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ACFF_KERNEL = CudaKernel("acff", "acff_infer_launch",
-                         [_P] * 9 + [_I] * 15 + [_P])
+                         [_P] * 8 + [_I] * 15 + [_P])
 # Launches of each kernel behind ACFF_KERNEL, counted where the runtime
-# accepted them ("bf16": the wgmma kernel, "fp32": the FMA kernel).
+# accepted them ("bf16": the bf16 kernel, "fp32": the 3xTF32 kernel).
 LAUNCHES = {"bf16": 0, "fp32": 0}
 
-Packed = Tuple[Optional[torch.Tensor], ...]
+Packed = Tuple[torch.Tensor, ...]
 
 TILE_PIXELS = 64        # one wgmma M: output pixels per thread block
 TILE_SIDE = 8           # the spatial tile is 8x8 output pixels
 HALO = 6                # branch 3 reaches 2 pixels before and 4 after
 K_CHUNK = 64            # fuse_w rows per streamed B chunk
 A_LBO = 144             # bytes between A's core matrices that follow in K
+FP32_A_LBO = 160        # the same in the fp32 kernel's A
 SMEM_LIMIT = 227 * 1024  # dynamic shared memory of one block on an H100
-BF16_WIDTHS = (64, 96, 128, 256)   # O: two warpgroups of N = O/2
+WIDTHS = (64, 96, 128, 256)   # O of both kernels: two warpgroups of N = O/2
 
 
 def acff_infer_plain(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
                      fuse_w: torch.Tensor, fuse_b: torch.Tensor,
                      scale: torch.Tensor, shift: torch.Tensor
                      ) -> torch.Tensor:
-    """The kernel's function in PyTorch ops, computed in fp32.
+    """The kernel's function in PyTorch ops, computed in fp32 (in fp64
+    for a float64 x, the reference the fp32 kernel is held to).
 
     x: (B,H,W,C); dw_w: (3,3,3,C) [branch, kh, kw, C]; dw_b: (3,C);
     fuse_w: (3C,O); fuse_b/scale/shift: (O,). Returns (B,H-2,W-2,O) in
     x's dtype. For a bf16 x the concatenated features and fuse_w are
     rounded to bf16 before the fuse product, as the bf16 kernel does."""
     c = x.shape[-1]
-    xf = x.float().permute(0, 3, 1, 2)
-    branches = [F.conv2d(xf, dw_w[d].float().permute(2, 0, 1).unsqueeze(1),
-                         dw_b[d].float(), padding=d, dilation=d + 1, groups=c)
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(ct).permute(0, 3, 1, 2)
+    branches = [F.conv2d(xf, dw_w[d].to(ct).permute(2, 0, 1).unsqueeze(1),
+                         dw_b[d].to(ct), padding=d, dilation=d + 1, groups=c)
                 for d in range(3)]
-    feat, w = torch.cat(branches, 1), fuse_w.float()
+    feat, w = torch.cat(branches, 1), fuse_w.to(ct)
     if x.dtype == torch.bfloat16:
         feat, w = feat.to(x.dtype).float(), w.to(x.dtype).float()
-    y = F.conv2d(feat, w.t()[:, :, None, None], fuse_b.float())
+    y = F.conv2d(feat, w.t()[:, :, None, None], fuse_b.to(ct))
     y = F.leaky_relu(y, 0.01)
-    y = y * scale.float()[:, None, None] + shift.float()[:, None, None]
+    y = y * scale.to(ct)[:, None, None] + shift.to(ct)[:, None, None]
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+
+
+def fp32_chunk(c: int) -> int:
+    """Input channels the fp32 kernel takes a pass (KC): 16 where C is a
+    multiple of 16, else 8. A pass reads a KC-channel input box and runs
+    3*KC rows of the fuse product (a multiple of one tf32 K step, 8)."""
+    return 16 if c % 16 == 0 else 8
+
+
+def fp32_padded_c(c: int) -> int:
+    """C rounded up to a whole number of ``fp32_chunk(c)`` channels; the
+    channels past C are zero (TMA zero fill, zero weights, zero rows of
+    B)."""
+    kc = fp32_chunk(c)
+    return -(-c // kc) * kc
+
+
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """v rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` rounds: fp32 with the low 13 bits 0."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def pack_fuse_operand_tf32(fuse_w: torch.Tensor) -> torch.Tensor:
+    """fuse_w (3C, O) as the fp32 kernel's B operand: a flat fp32 tensor
+    of TF32 values, hi = tf32_round(w) and lo = tf32_round(w - hi), so
+    that hi + lo is w to about 2^-22 relative.
+
+    Chunk j holds the rows the kernel's j-th channel pass reads: local row
+    k = d*KC + cl is concat row d*C + j*KC + cl (zero past C), KC =
+    ``fp32_chunk(C)``, as the kernel derives it. A chunk is its hi part,
+    then its lo part, each 3*KC rows of K-major core matrices of 8 rows x
+    4 values: element (k, n) at
+    ``((n//8 * (3*KC)//4 + k//4) * 8 + n%8) * 4 + k%4``, so core matrices
+    that follow in K are 128 bytes apart and those that follow in N 3*KC*32
+    bytes apart (the descriptor's leading and stride byte offsets)."""
+    k3, o = fuse_w.shape
+    if o % 8:
+        raise ValueError(f"fuse_w width {o} is not a multiple of 8")
+    c = k3 // 3
+    kc, cp = fp32_chunk(c), fp32_padded_c(c)
+    w = torch.zeros((3, cp, o), dtype=torch.float32, device=fuse_w.device)
+    w[:, :c] = fuse_w.float().reshape(3, c, o)
+    hi = tf32_round(w)
+    lo = tf32_round(w - hi)
+    nch, k = cp // kc, 3 * kc
+    blk = (torch.stack((hi, lo))                       # (2, 3, cp, O)
+           .reshape(2, 3, nch, kc, o).permute(2, 0, 4, 1, 3)
+           .reshape(nch, 2, o // 8, 8, k // 4, 4))     # [j, part, n, k]
+    return blk.permute(0, 1, 2, 4, 3, 5).reshape(-1).contiguous()
+
+
+def unpack_fuse_operand_tf32(packed: torch.Tensor, c: int, o: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inverse of ``pack_fuse_operand_tf32``: (hi, lo), each (3, Cp, O)
+    [branch, channel, output] with Cp = ``fp32_padded_c(c)``, padding
+    channels included."""
+    kc, cp = fp32_chunk(c), fp32_padded_c(c)
+    nch, k = cp // kc, 3 * kc
+    t = (packed.reshape(nch, 2, o // 8, k // 4, 8, 4)
+         .permute(0, 1, 2, 4, 3, 5).reshape(nch, 2, o, 3, kc)
+         .permute(1, 3, 0, 4, 2).reshape(2, 3, cp, o))
+    return t[0], t[1]
 
 
 def padded_k(c: int) -> int:
@@ -190,6 +265,20 @@ def bf16_smem_bytes(c: int, o: int, plan: TilePlan) -> int:
     return up(a + kp * A_LBO) + 2 * min(kp, K_CHUNK) * o * 2 + 128
 
 
+def fp32_smem_bytes(c: int, o: int, plan: TilePlan) -> int:
+    """Dynamic shared memory of one fp32 block, as ``FSmem`` in
+    ``csrc/acff.cu`` lays it out, plus the 128 bytes that align its base:
+    3 mbarriers; two buffers of one chunk's dw_w and dw_b in fp32; two
+    input boxes of ``fp32_chunk(c)`` channels; A's hi and lo parts in
+    core matrices ``FP32_A_LBO`` apart in K; one B chunk, hi and lo."""
+    def up(v: int) -> int:
+        return -(-v // 128) * 128
+    kc = fp32_chunk(c)
+    box = plan.images * plan.hy * plan.hx * kc * 4
+    a = up(128 + 2 * 30 * kc * 4) + 2 * up(box)
+    return up(a + 2 * 8 * (3 * kc // 4) * FP32_A_LBO) + 24 * kc * o + 128
+
+
 def _check(x: torch.Tensor, dw_w, dw_b, fuse_w, fuse_b, scale, shift) -> None:
     if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be (B,H,W,C) float32 or bfloat16, got "
@@ -209,19 +298,42 @@ def _check(x: torch.Tensor, dw_w, dw_b, fuse_w, fuse_b, scale, shift) -> None:
             raise ValueError(f"{name} must be contiguous on {x.device}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous NHWC")
+    # the input box is a TMA tensor map: 16-byte rows, boxes <= 256
     if x.dtype == torch.bfloat16:
-        # the input box is a TMA tensor map: 16-byte rows, boxes <= 256
-        if c % 8 or c > 256 or h > 256 or w > 256 or o not in BF16_WIDTHS:
-            raise ValueError(f"bf16 kernel takes C % 8 == 0, C <= 256, "
-                             f"H, W <= 256 and O in {BF16_WIDTHS}; got C={c} "
-                             f"O={o} H={h} W={w}")
-        smem = bf16_smem_bytes(c, o, tile_plan(b, h, w))
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"bf16 kernel: a block at C={c} O={o} H={h} "
-                             f"W={w} needs {smem} B of shared memory, over "
-                             f"{SMEM_LIMIT}")
-        if x.data_ptr() % 16:
-            raise ValueError("x must start on a 16-byte boundary")
+        quant, smem = "bf16", bf16_smem_bytes
+        fits = c % 8 == 0 and c <= 256
+        need = "C % 8 == 0, C <= 256"
+    else:
+        quant, smem = "fp32", fp32_smem_bytes
+        fits, need = c % 4 == 0, "C % 4 == 0"
+    if not fits or h > 256 or w > 256 or o not in WIDTHS:
+        raise ValueError(f"{quant} kernel takes {need}, H, W <= 256 and O "
+                         f"in {WIDTHS}; got C={c} O={o} H={h} W={w}")
+    nbytes = smem(c, o, tile_plan(b, h, w))
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{quant} kernel: a block at C={c} O={o} H={h} "
+                         f"W={w} needs {nbytes} B of shared memory, over "
+                         f"{SMEM_LIMIT}")
+    if x.data_ptr() % 16:
+        raise ValueError("x must start on a 16-byte boundary")
+
+
+def _check_operand(x: torch.Tensor, fuse_operand: Optional[torch.Tensor],
+                   c: int, o: int) -> None:
+    """Raises unless ``fuse_operand`` is fuse_w (3C, O) packed for the
+    kernel of x's dtype: ``pack_fuse_operand`` for bf16,
+    ``pack_fuse_operand_tf32`` for fp32."""
+    if x.dtype == torch.bfloat16:
+        name, dtype, n = "pack_fuse_operand", torch.bfloat16, padded_k(c) * o
+    else:
+        name, dtype = "pack_fuse_operand_tf32", torch.float32
+        n = 6 * fp32_padded_c(c) * o
+    if (fuse_operand is None or fuse_operand.dtype != dtype
+            or fuse_operand.numel() != n
+            or fuse_operand.device != x.device
+            or not fuse_operand.is_contiguous()
+            or fuse_operand.data_ptr() % 16):
+        raise ValueError(f"fuse_operand is not {name}(fuse_w)")
 
 
 def acff_infer(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
@@ -230,10 +342,12 @@ def acff_infer(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
                fuse_operand: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused ACFF block; arguments as ``acff_infer_plain``, weights fp32.
 
-    ``fuse_operand`` is ``pack_fuse_operand(fuse_w)``, which the bf16
-    kernel reads: required for a bf16 x on CUDA, not read otherwise. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel on
-    the current stream, and a failed build or launch raises."""
+    ``fuse_operand`` is fuse_w packed for the kernel of x's dtype, which
+    reads it in place of fuse_w: ``pack_fuse_operand(fuse_w)`` for bf16,
+    ``pack_fuse_operand_tf32(fuse_w)`` for fp32; required on CUDA, not read
+    on the CPU. A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel on the current stream, and a failed build or launch
+    raises."""
     if x.device.type == "cpu":
         return acff_infer_plain(x, dw_w, dw_b, fuse_w, fuse_b, scale, shift)
     if x.device.type != "cuda":
@@ -241,22 +355,16 @@ def acff_infer(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
     _check(x, dw_w, dw_b, fuse_w, fuse_b, scale, shift)
     b, h, w, c = x.shape
     o = fuse_w.shape[-1]
+    _check_operand(x, fuse_operand, c, o)
     bf16 = x.dtype == torch.bfloat16
-    if bf16:
-        if (fuse_operand is None or fuse_operand.dtype != torch.bfloat16
-                or fuse_operand.numel() != padded_k(c) * o
-                or fuse_operand.device != x.device
-                or not fuse_operand.is_contiguous()):
-            raise ValueError("fuse_operand is not pack_fuse_operand(fuse_w)")
-    plan = tile_plan(b, h, w) if bf16 else TilePlan(0, 0, 0, 0, 0, 0, 0, 0, 0)
     out = torch.empty((b, h - 2, w - 2, o), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         ACFF_KERNEL.launch(
-            x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), fuse_w.data_ptr(),
-            fuse_operand.data_ptr() if bf16 else None, fuse_b.data_ptr(),
-            scale.data_ptr(), shift.data_ptr(), out.data_ptr(), b, h, w, c, o,
-            int(bf16), *plan.scalars(), stream)
+            x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(),
+            fuse_operand.data_ptr(), fuse_b.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), out.data_ptr(), b, h, w, c, o, int(bf16),
+            *tile_plan(b, h, w).scalars(), stream)
     LAUNCHES["bf16" if bf16 else "fp32"] += 1
     return out
 

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
-"""Where the bf16 ACFF kernel's time goes, by phase, on one NVIDIA GPU.
+"""Where an ACFF kernel's time goes, by phase, on one NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with an H100:
 
-    python3 scripts/acff_phase_times.py
+    python3 scripts/acff_phase_times.py [--quant bf16|fp32]
 
 ``ncu`` is not available everywhere the kernel is measured, so this times
 variants of ``rtdm_tpu_torch/csrc/acff.cu`` with one phase removed each,
@@ -13,7 +13,21 @@ at batch 256: ``no_dw`` (no depthwise features), ``no_mma`` (no wgmma),
 stores) and ``skeleton`` (all four removed: box loads, barriers and loops
 only). A variant computes garbage; only its time means anything, and the
 time a phase saves when removed is an upper bound on what it costs in the
-whole kernel (the phases overlap across resident blocks). Each variant is
+whole kernel (the phases overlap across resident blocks). The fp32 kernel
+(``--quant fp32``) has no ``no_epi`` (its epilogue stores from the
+accumulators: ``no_store`` drops both) and has ``no_b`` (no B chunk
+loads: the product reads
+whatever the buffer holds), and variants of its arithmetic: ``one_tf32``
+(the two lo terms removed: a single TF32 product, A_hi*B_hi) and
+``chunk_runs`` (the tensor cores sum a whole channel chunk, each k step's
+three terms in turn, before the fp32 add: the arithmetic of the first
+3xTF32 design, in place of one k step a run). For those and ``whole`` it
+prints max |out - fp64|
+over max |fp64| on the random inputs beside ``chip_smoke.FP64_REL_TOL``
+(the plain version computed in float64 on the card), and, on the inputs
+each ACFF block of the three fp32 engines gets from the golden frames
+(``chip_smoke.real_input_errors``), the largest error and the bias of
+each block and the engines' logits against the JAX golden. Each variant is
 a copy of the source edited by exact text replacement, built with
 ``kernels.nvcc_command`` (the port's flags) into ``build/phase_variants/``;
 a replacement that no longer matches the source stops the script, so an
@@ -24,7 +38,9 @@ and a JSON object.
 
 from __future__ import annotations
 
+import argparse
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -36,7 +52,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import card_line, graph_ms  # noqa: E402
+from chip_smoke import (ENGINES, FP64_REL_TOL, GOLDEN, MODELS,  # noqa: E402
+                        acff_inputs, card_line, graph_ms,
+                        real_input_errors)
 from rtdm_tpu_torch.ops import acff as ops, kernels  # noqa: E402
 
 OUT = ROOT / "build" / "phase_variants"
@@ -56,16 +74,78 @@ CUTS = {
         "sc.y, sh.y));", "        if (v0 == v1 + 1e30f) buf[0] = 1;")],
     "no_store": [(
         "      if (!tile_pixel(pl, p, b0, oy0, ox0, B, OH, OW, img, py, px)) "
-        "continue;", "      if (B > 0) continue;")],
+        "continue;\n      __nv_bfloat16* dst =",
+        "      if (B > 0) continue;\n      __nv_bfloat16* dst =")],
 }
 CUTS["skeleton"] = [c for name in ("no_dw", "no_mma", "no_epi", "no_store")
                     for c in CUTS[name]]
+# the fp32 kernel's product of one channel chunk
+PRODUCT = ("      if (KC == 16)\n"
+           "        chunk_product<NH, 6>(acc, a_base, b_base, L.apart, "
+           "L.bsz / 2, a_sbo,\n"
+           "                             b_sbo);\n"
+           "      else\n"
+           "        chunk_product<NH, 3>(acc, a_base, b_base, L.apart, "
+           "L.bsz / 2, a_sbo,\n"
+           "                             b_sbo);\n")
+CUTS_FP32 = {
+    "no_dw": [
+        ("          dw_rows_f32<4>(box, wts, a_s, L.apart, KC, L.kc4, tid);",
+         "          ;"),
+        ("          dw_rows_f32<2>(box, wts, a_s, L.apart, KC, L.kc4, tid);",
+         "          ;"),
+        ("for (int i = tid; i < 3 * BM * KC4; i += BTHREADS) {",
+         "for (int i = tid; i < 0; i += BTHREADS) {")],
+    "no_mma": [(PRODUCT, "")],
+    "no_b": [("    if (uses > 0) issue_b(0);\n", ""),
+             ("      mbar_wait(bar_b, nchunks > 1 ? (u & 1) : 0);\n", ""),
+             ("      if (tid == 0 && nchunks > 1 && u + 1 < uses) "
+              "issue_b((c + 1) % nchunks);\n", "")],
+    "no_store": [("        if (dst[i] != nullptr)\n",
+                  "        if (B < 0)\n")],
+}
+CUTS_FP32["skeleton"] = [c for name in ("no_dw", "no_mma", "no_store")
+                         for c in CUTS_FP32[name]]
+CUTS_FP32["one_tf32"] = [(
+    "  wgmma_tf32<P>(d, gmma_desc(a + apart, F_LBO, a_sbo),\n"
+    "                gmma_desc(b, 128, b_sbo), 0);\n"
+    "  wgmma_tf32<P>(d, gmma_desc(a, F_LBO, a_sbo),\n"
+    "                gmma_desc(b + blo, 128, b_sbo), 1);\n"
+    "  wgmma_tf32<P>(d, gmma_desc(a, F_LBO, a_sbo), "
+    "gmma_desc(b, 128, b_sbo), 1);\n",
+    "  (void)apart; (void)blo;\n"
+    "  wgmma_tf32<P>(d, gmma_desc(a, F_LBO, a_sbo), "
+    "gmma_desc(b, 128, b_sbo), 0);\n")]
 
 
-def variant_sources() -> dict:
+# the first 3xTF32 design's arithmetic: each k step's three terms in turn,
+# summed over the whole chunk on the tensor cores before the fp32 add
+CUTS_FP32["chunk_runs"] = [(PRODUCT, """\
+      {
+        float part[NH / 2];
+        fence_operands(part);
+        asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+        for (int s = 0; s < 3 * KC / 8; ++s) {
+          const uint32_t ao = a_base + 2 * s * F_LBO;
+          const uint32_t bo = b_base + 2 * s * 128;
+          wgmma_tf32<NH>(part, gmma_desc(ao + L.apart, F_LBO, a_sbo),
+                         gmma_desc(bo, 128, b_sbo), s > 0);
+          wgmma_tf32<NH>(part, gmma_desc(ao, F_LBO, a_sbo),
+                         gmma_desc(bo + L.bsz / 2, 128, b_sbo), 1);
+          wgmma_tf32<NH>(part, gmma_desc(ao, F_LBO, a_sbo),
+                         gmma_desc(bo, 128, b_sbo), 1);
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+        retire_run<0>(acc, part);
+      }
+""")]
+ACCURACY = ("whole", "one_tf32", "chunk_runs")
+
+
+def variant_sources(cuts_by_name: dict) -> dict:
     src = (kernels.CSRC / "acff.cu").read_text()
     out = {"whole": src}
-    for name, cuts in CUTS.items():
+    for name, cuts in cuts_by_name.items():
         text = src
         for old, new in cuts:
             if text.count(old) != 1:
@@ -97,14 +177,58 @@ def build_all(sources: dict) -> dict:
     return fns
 
 
+def real_inputs(fns: dict) -> dict:
+    """Each variant of ``fns`` in place of the built kernel, in the three
+    fp32 engines on the golden frames: per model, the largest error and
+    the bias of each block on the inputs the production kernel's forward
+    gave it, and the engine's logits against the JAX golden."""
+    from rtdm_tpu_torch.export.engine import Engine
+    with np.load(GOLDEN) as g:
+        golden = dict(g)
+    kern = ops.ACFF_KERNEL
+    kern._bind()
+    whole, result = kern._fn, {}
+    for model in MODELS:
+        loaded = Engine.load(str(ENGINES / f"{model}_bf16"))
+        spec = dataclasses.replace(loaded.spec, quant="fp32",
+                                   with_softmax=False)
+        eng = Engine(spec, loaded.variables)
+        frames, want = golden[f"frames_{spec.image_size}"], golden[model]
+        with acff_inputs(eng.model, len(want)) as blocks:
+            eng(frames)
+        for name, fn in fns.items():
+            kern._fn = fn
+            try:
+                rows = real_input_errors(blocks)
+                err = float(np.abs(eng(frames) - want).max())
+            finally:
+                kern._fn = whole
+            top = float(np.abs(want).max())
+            result.setdefault(name, {})[model] = {
+                "logit_err": err, "logit_rel_err": err / top, "blocks": rows}
+            print(f"real inputs {name} {model}: logits vs JAX golden "
+                  f"{err:.4e} ({err / top:.3e} of max |logit|); per block "
+                  f"kernel max / bias (plain max / bias): " + ", ".join(
+                      f"{r['block']} {r['kernel_max']:.2e} / "
+                      f"{r['kernel_bias']:.2e} ({r['plain_max']:.2e} / "
+                      f"{r['plain_bias']:.2e})" for r in rows), flush=True)
+        del eng, blocks
+    return result
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--quant", choices=("bf16", "fp32"), default="bf16")
+    quant = ap.parse_args().quant
     if not torch.cuda.is_available():
         print("CUDA is not available", file=sys.stderr)
         return 2
-    fns = build_all(variant_sources())
+    bf16 = quant == "bf16"
+    fns = build_all(variant_sources(CUTS if bf16 else CUTS_FP32))
     rng = np.random.default_rng(0)
     card = card_line()
-    result = {"card": card, "batch": BATCH, "ms": {}}
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    result = {"card": card, "quant": quant, "batch": BATCH, "ms": {}}
     for c, o, h in SHAPES:
         host = [rng.standard_normal((BATCH, h, h, c), dtype=np.float32),
                 rng.normal(size=(3, 3, 3, c)) * 0.3, rng.normal(size=(3, c)),
@@ -112,27 +236,43 @@ def main() -> int:
                 rng.normal(size=o), rng.uniform(0.5, 1.5, o),
                 rng.normal(size=o)]
         a = [torch.from_numpy(v.astype(np.float32)).cuda() for v in host]
-        a[0] = a[0].bfloat16()
-        fuse_op = ops.pack_fuse_operand(a[3])
+        a[0] = a[0].to(dtype)
+        fuse_op = (ops.pack_fuse_operand(a[3]) if bf16
+                   else ops.pack_fuse_operand_tf32(a[3]))
         plan = ops.tile_plan(BATCH, h, h)
-        out = torch.empty((BATCH, h - 2, h - 2, o), dtype=torch.bfloat16,
+        out = torch.empty((BATCH, h - 2, h - 2, o), dtype=dtype,
                           device="cuda")
-        times = {}
+        times, errors = {}, {}
+        ref = None if bf16 else ops.acff_infer_plain(*[t.double() for t in a])
         for name, fn in fns.items():
             def call(fn=fn):
                 rc = fn(a[0].data_ptr(), a[1].data_ptr(), a[2].data_ptr(),
-                        a[3].data_ptr(), fuse_op.data_ptr(), a[4].data_ptr(),
-                        a[5].data_ptr(), a[6].data_ptr(), out.data_ptr(),
-                        BATCH, h, h, c, o, 1, *plan.scalars(),
+                        fuse_op.data_ptr(), a[4].data_ptr(), a[5].data_ptr(),
+                        a[6].data_ptr(), out.data_ptr(), BATCH, h, h, c, o,
+                        int(bf16), *plan.scalars(),
                         torch.cuda.current_stream().cuda_stream)
                 if rc:
                     raise RuntimeError(f"launch failed: CUDA error {rc}")
             times[name] = graph_ms(call, 20)
+            if ref is not None and name in ACCURACY:
+                call()
+                torch.cuda.synchronize()
+                errors[name] = ((out.double() - ref).abs().max()
+                                / ref.abs().max()).item()
         key = f"{h}x{h}x{c}->{o}"
         result["ms"][key] = times
-        print(f"phases {key} batch {BATCH}: " + " ".join(
+        if errors:
+            result.setdefault("fp64_rel_err", {})[key] = errors
+            print(f"fp64 {key}: " + " ".join(
+                f"{k}={v:.3e} ({'pass' if v <= FP64_REL_TOL else 'FAIL'})"
+                for k, v in errors.items()) + f" of max |out|, limit "
+                f"{FP64_REL_TOL}", flush=True)
+        print(f"phases {quant} {key} batch {BATCH}: " + " ".join(
             f"{k}={v:.4f}" for k, v in times.items()) + f" ms [{card}]",
             flush=True)
+        del a, fuse_op, out, ref
+    if not bf16:
+        result["real_inputs"] = real_inputs({k: fns[k] for k in ACCURACY})
     print(json.dumps(result))
     return 0
 

@@ -3,15 +3,18 @@ and the ``ACFF`` module against ``rtdm_tpu.models.acff.ACFF.apply`` and
 against the Pallas kernel in interpret mode, at rtol 1e-4 / atol 1e-5 (the
 bounds of tests/test_acff_pallas.py; fp32 on both sides, sums in another
 order), and in bf16 against ``ACFF.apply`` run as the JAX bf16 engine runs
-it. Also the host side of the bf16 kernel: the B operand layout and the
-tile plan.
+it. Also the host side of the kernels: the B operand layouts (bf16, and
+the fp32 kernel's TF32 hi/lo split), the tile plan, the shared-memory
+counts, and the 3xTF32 arithmetic of the fp32 kernel in plain torch.
 
 JAX is imported inside the fixture that needs it, so that the test marked
 ``cuda`` also runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_acff.py
 """
 
+import importlib.util
 import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -207,8 +210,9 @@ def test_packed_arguments_are_rebuilt_on_load(jax_ref, rng):
     torch.testing.assert_close(again[4], first[4] / np.sqrt(2.0),
                                rtol=1e-4, atol=0)
     assert mod.to(torch.float32).packed() is not again   # and per move
-    # the bf16 kernel's B operand is packed with the rest, for bf16 only
-    assert again[6] is None
+    # the kernel's B operand is packed with the rest, for the fp32 kernel
+    # as TF32 hi and lo, for the bf16 one in bf16
+    assert torch.equal(again[6], ops.pack_fuse_operand_tf32(again[2]))
     bf16 = mod.to(torch.bfloat16).packed()
     assert torch.equal(bf16[6], ops.pack_fuse_operand(bf16[2]))
 
@@ -230,10 +234,22 @@ def _kernel_args(rng, b, c, o, hw, dtype, device):
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "weight_dtype",
                                  "noncontiguous", "tiny", "bf16_width",
-                                 "bf16_channels", "bf16_smem"])
+                                 "bf16_channels", "bf16_smem",
+                                 "fp32_channels", "fp32_width",
+                                 "fp32_narrow", "fp32_extent"])
 def test_kernel_checks_reject_what_it_does_not_take(rng, bad):
-    x, *w = _kernel_args(rng, 2, 8, 32, 6, torch.float32, "cpu")
-    if bad == "bf16_width":       # O=32: no wgmma width of the bf16 kernel
+    x, *w = _kernel_args(rng, 2, 8, 64, 6, torch.float32, "cpu")
+    ops._check(x, *w)             # what each case changes is what it rejects
+    if bad == "fp32_channels":    # C=6: a TMA row of 24 bytes
+        x, *w = _kernel_args(rng, 2, 6, 64, 6, torch.float32, "cpu")
+    elif bad == "fp32_width":     # O=48: no width of the fp32 kernel
+        x, *w = _kernel_args(rng, 2, 8, 48, 6, torch.float32, "cpu")
+    elif bad == "fp32_narrow":    # O=32: no model's width, not instantiated
+        x, *w = _kernel_args(rng, 2, 8, 32, 6, torch.float32, "cpu")
+    elif bad == "fp32_extent":    # W=300: past the 256 the kernels take
+        x, *w = _kernel_args(rng, 1, 8, 64, 6, torch.float32, "cpu")
+        x = torch.zeros(1, 6, 300, 8)
+    elif bad == "bf16_width":     # O=32: no wgmma width of the bf16 kernel
         x, *w = _kernel_args(rng, 2, 8, 32, 6, torch.bfloat16, "cpu")
     elif bad == "bf16_channels":  # C=12: a TMA row of 24 bytes
         x, *w = _kernel_args(rng, 2, 12, 64, 6, torch.bfloat16, "cpu")
@@ -254,6 +270,21 @@ def test_kernel_checks_reject_what_it_does_not_take(rng, bad):
         ops._check(x, *w)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_call_without_its_operand_is_rejected(rng, dtype):
+    """A CUDA call must bring fuse_w packed for its kernel: none, or the
+    other kernel's operand, raises before any launch."""
+    x, *w = _kernel_args(rng, 2, 16, 64, 9, dtype, "cpu")
+    ops._check(x, *w)
+    right, wrong = ops.pack_fuse_operand_tf32, ops.pack_fuse_operand
+    if dtype == torch.bfloat16:
+        right, wrong = wrong, right
+    ops._check_operand(x, right(w[2]), 16, 64)
+    for bad in (None, wrong(w[2]), right(w[2])[:-8]):
+        with pytest.raises(ValueError):
+            ops._check_operand(x, bad, 16, 64)
+
+
 # bf16 kernel's dynamic shared memory at every (C, O, H=W) of the models'
 # main paths, as acff_bf16_footprint of the built library gave it on an
 # H100 (chip_smoke.py, which also fails where the two counts differ)
@@ -272,28 +303,182 @@ def test_bf16_smem_bytes_match_the_kernel(c, o, hw, want):
     assert ops.bf16_smem_bytes(c, o, ops.tile_plan(1, hw, hw)) <= want
 
 
+# fp32 kernel's dynamic shared memory at every (C, O, H=W) of the models'
+# main paths at batch 256, as acff_fp32_footprint of the built library gave
+# it on an H100 (chip_smoke.py, which also fails where the two counts
+# differ)
+FP32_SMEM_BYTES = [(16, 64, 69, 84480), (8, 64, 69, 42368),
+                   (64, 96, 33, 96768), (96, 128, 15, 109056),
+                   (48, 128, 15, 109056), (128, 256, 6, 151552),
+                   (64, 256, 6, 151552), (128, 128, 13, 109056),
+                   (128, 128, 11, 109056), (128, 256, 9, 143616)]
+
+
+@pytest.mark.parametrize("c,o,hw,want", FP32_SMEM_BYTES)
+def test_fp32_smem_bytes_match_the_kernel(c, o, hw, want):
+    at_256 = ops.fp32_smem_bytes(c, o, ops.tile_plan(256, hw, hw))
+    assert at_256 == want <= ops.SMEM_LIMIT
+    assert ops.fp32_smem_bytes(c, o, ops.tile_plan(1, hw, hw)) <= want
+
+
+def test_fp32_smem_does_not_grow_with_channels():
+    """Channels stream in chunks, so C does not bound the fp32 kernel's
+    shared memory as it bounds the bf16 one: a block at C=256 takes what
+    one at C=16 takes, and _check accepts it at the widest O."""
+    for o in ops.WIDTHS:
+        plan = ops.tile_plan(256, 69, 69)
+        assert ops.fp32_smem_bytes(256, o, plan) \
+            == ops.fp32_smem_bytes(16, o, plan) <= ops.SMEM_LIMIT
+    x, *w = _kernel_args(np.random.default_rng(1), 1, 256, 256, 10,
+                         torch.float32, "cpu")
+    ops._check(x, *w)
+
+
+@pytest.mark.parametrize("c,o", WIDTHS + [(16, 32), (12, 64), (4, 32)])
+def test_fuse_operand_tf32_layout(c, o):
+    """pack_fuse_operand_tf32 round-trips through its inverse; hi is fuse_w
+    rounded to TF32 (ties away, as cvt.rna), hi + lo rebuilds fuse_w to
+    within 2^-21 relative; padding channels are zero; and element (k, n)
+    of chunk j, at the offset the kernel reads, is concat row
+    d*C + j*KC + cl for k = d*KC + cl."""
+    rng = np.random.default_rng(c * 1000 + o)
+    fuse_w = torch.from_numpy(rng.normal(size=(3 * c, o)).astype(np.float32))
+    packed = ops.pack_fuse_operand_tf32(fuse_w)
+    kc, cp = ops.fp32_chunk(c), ops.fp32_padded_c(c)
+    assert packed.dtype == torch.float32 and packed.shape == (6 * cp * o,)
+    hi, lo = ops.unpack_fuse_operand_tf32(packed, c, o)
+    assert hi.shape == lo.shape == (3, cp, o)
+    want_hi = ops.tf32_round(fuse_w).reshape(3, c, o)
+    assert torch.equal(hi[:, :c], want_hi)
+    assert torch.equal(lo[:, :c], ops.tf32_round(fuse_w.reshape(3, c, o)
+                                                 - want_hi))
+    assert not hi[:, c:].abs().sum() and not lo[:, c:].abs().sum()
+    # TF32: the low 13 bits of both halves are zero
+    bits = packed.view(torch.int32)
+    assert not (bits & 0x1FFF).any()
+    rebuilt = (hi + lo)[:, :c].reshape(3 * c, o)
+    rel = ((rebuilt - fuse_w).abs() / fuse_w.abs()).max().item()
+    assert rel <= 2.0 ** -21
+    # the chunk order, as the kernel reads it: chunk j is hi then lo, each
+    # (3*KC) x O in K-major core matrices of 8 rows x 4 values
+    k = 3 * kc
+    for j in range(cp // kc):
+        base = j * 2 * k * o
+        for d, cl, n in ((0, 0, 0), (2, kc - 1, o - 1), (1, kc // 2, 9 % o)):
+            row = d * c + j * kc + cl
+            kk = d * kc + cl
+            at = ((n // 8 * (k // 4) + kk // 4) * 8 + n % 8) * 4 + kk % 4
+            want = (ops.tf32_round(fuse_w[row, n]) if j * kc + cl < c
+                    else torch.tensor(0.0))
+            assert packed[base + at] == want
+            assert packed[base + k * o + at] == (
+                ops.tf32_round(fuse_w[row, n] - want) if j * kc + cl < c
+                else 0.0)
+
+
+def test_tf32_round_to_nearest_ties_away():
+    v = torch.tensor([1.0 + 2.0 ** -11, -(1.0 + 2.0 ** -11),
+                      1.0 + 2.0 ** -11 + 2.0 ** -20, 1.0 + 2.0 ** -12,
+                      3.0], dtype=torch.float32)
+    want = torch.tensor([1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10),
+                         1.0 + 2.0 ** -10, 1.0, 3.0])
+    assert torch.equal(ops.tf32_round(v), want)
+
+
+def test_3xtf32_product_keeps_fp32_accuracy(rng):
+    """The fp32 kernel's fuse product in plain torch: features and fuse_w
+    split into TF32 hi and lo as the kernel splits them, products of TF32
+    values exact in fp32, sums in fp32, as the tensor cores keep them. The
+    three-term sum A_lo*B_hi + A_hi*B_lo + A_hi*B_hi is within 1e-6 of max
+    |out| of the float64 product of the same features and fuse_w; the one
+    term A_hi*B_hi (single TF32) is not. This is why the chip's float64
+    gate (1e-5 of max |out|) tells full fp32 from a TF32 product."""
+    c, o = 64, 96
+    x, dw_w, dw_b, fuse_w, *_ = _kernel_args(rng, 2, c, o, 9, torch.float32,
+                                             "cpu")
+    xf = x.permute(0, 3, 1, 2)
+    feat = torch.cat([torch.nn.functional.conv2d(
+        xf, dw_w[d].permute(2, 0, 1).unsqueeze(1), dw_b[d], padding=d,
+        dilation=d + 1, groups=c) for d in range(3)], 1)
+    a = feat.permute(0, 2, 3, 1).reshape(-1, 3 * c)         # (P, 3C) fp32
+    a_hi = ops.tf32_round(a)
+    a_lo = ops.tf32_round(a - a_hi)
+    hi, lo = ops.unpack_fuse_operand_tf32(
+        ops.pack_fuse_operand_tf32(fuse_w), c, o)
+    b_hi, b_lo = hi.reshape(3 * c, o), lo.reshape(3 * c, o)
+    want = a.double() @ fuse_w.double()
+    top = want.abs().max().item()
+    three = a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+    one = a_hi @ b_hi
+    assert three.dtype == torch.float32
+    assert (three.double() - want).abs().max().item() <= 1e-6 * top
+    assert (one.double() - want).abs().max().item() > 1e-5 * top
+
+
+def test_real_input_errors_see_rounding_toward_zero(monkeypatch):
+    """chip_smoke.py's real-input gate on the CPU: ``acff_inputs`` collects
+    each ACFF block's input, in forward order, at the first n images, and
+    ``real_input_errors`` reads a kernel that shrinks every output by
+    2^-20 (rounding toward zero) as a bias of -2^-20 of mean |out| and a
+    largest error of 2^-20 of max |out| (give or take the plain fp32
+    version's own); the plain version reads no bias and passes the
+    gate."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    torch.manual_seed(0)
+    net = torch.nn.Sequential(ACFF(8, 64), ACFF(64, 96)).eval()
+    x = torch.randn(3, 11, 11, 8)
+    with torch.inference_mode(), smoke.acff_inputs(net, 2) as blocks:
+        out = net(x)
+    assert [(n, tuple(t.shape)) for n, _, t in blocks] == [
+        ("0", (2, 11, 11, 8)), ("1", (2, 9, 9, 64))]
+    assert torch.equal(blocks[0][2], x[:2])
+    shrink = 1 - 2.0 ** -20
+
+    def kernel(x, *args):
+        return ops.acff_infer_plain(x, *args[:6]) * shrink
+    monkeypatch.setattr(ops, "acff_infer", kernel)
+    with torch.inference_mode():
+        rows = smoke.real_input_errors(blocks)
+    assert [r["block"] for r in rows] == ["0", "1"]
+    np.testing.assert_allclose(rows[1]["max_abs_out"],
+                               out[:2].abs().max().item(), rtol=1e-6)
+    for r in rows:
+        assert abs(r["kernel_bias"] + 2.0 ** -20) < 2.0 ** -23
+        assert abs(r["plain_bias"]) < 2.0 ** -25
+        assert r["plain_max"] <= smoke.FP64_REL_TOL
+        assert abs(r["kernel_max"] - 2.0 ** -20) <= r["plain_max"] + 2.0 ** -23
+
+
 @pytest.mark.cuda
 def test_cuda_kernel_matches_plain():
     """fp32: rtol 1e-4 / atol 1e-5 with TF32 off for the plain version.
     bf16: 2e-2; both round the features and the output to bf16 (2^-8
     relative each), a different summation order can move either rounding by
     one step. Batches 1, 3 and 5 give ragged spatial tiles and packed small
-    images with unused rows (6x6 and 9x9 inputs). O=32 runs in fp32 only:
-    the bf16 kernel's narrowest width is 64."""
+    images with unused rows (6x6 and 9x9 inputs). An O=32 shape runs at
+    O=64, the kernels' narrowest width. C=12 and C=4 run in fp32 only:
+    their last fp32 channel chunk reaches past C (zero filled)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(0)
     for c, o, hw in SHAPES + [(128, 256, 6), (128, 256, 9), (48, 128, 15),
-                              (96, 128, 13)]:
+                              (96, 128, 13), (12, 64, 9), (4, 64, 7)]:
         for b in (1, 3, 5):
             for dtype, tol in ((torch.float32, (1e-4, 1e-5)),
                                (torch.bfloat16, (2e-2, 2e-2))):
                 bf16 = dtype == torch.bfloat16
-                ob = 64 if bf16 and o == 32 else o
+                if bf16 and c % 8:
+                    continue
+                ob = 64 if o == 32 else o
                 args = _kernel_args(rng, b, c, ob, hw, dtype, "cuda")
-                fuse_op = ops.pack_fuse_operand(args[3]) if bf16 else None
+                pack = (ops.pack_fuse_operand if bf16
+                        else ops.pack_fuse_operand_tf32)
+                fuse_op = pack(args[3])
                 quant = "bf16" if bf16 else "fp32"
                 before = dict(ops.LAUNCHES)
                 got = ops.acff_infer(*args, fuse_op)

@@ -14,25 +14,32 @@ non-zero exit, and the result line is printed only at the end:
      cuobjdump finds in the library; no bf16 or no TF32 HGMMA fails the
      run;
   3. kernel vs plain: both ACFF kernels (bf16: wgmma, fp32: 3xTF32 on
-     wgmma) at every ACFF shape of the three classifiers, against their
-     plain PyTorch version on the same inputs: checked at batch 1 and 3
-     (ragged and packed tiles) and checked and timed at engine batch 256,
-     the fp32 kernel timed at batch 1 too and held to the plain version
-     computed in float64 (FP64_REL_TOL), with bounds (fp32: the 3xTF32 and
-     the FMA-peak one), share of the bound, and each kernel's shared
-     memory (checked against the wrapper's count) and blocks per SM;
-  4. end to end: the engines of artifacts/engines/ on the 10 example JPEGs,
-     held against the port on the CPU and against the committed JAX golden
-     (tests/goldens/torch_port/classifier_logits.npz), with the launch
-     count of each ACFF kernel in each engine forward, each counted from 0;
-     and the fp32 kernel, on the inputs each ACFF block of the fp32
-     engines gets from the golden frames, against the plain version in
-     float64: its largest error (FP64_REL_TOL) and its mean signed error
-     (BIAS_TOL), beside the plain fp32 version's;
+     wgmma) and the bf16 kernel's int8 QDQ mode at every ACFF shape of the
+     three classifiers, against their plain PyTorch version on the same
+     inputs (QDQ: scales that spread the codes over +-127): checked at
+     batch 1 and 3 (ragged and packed tiles) and checked and timed at
+     engine batch 256, the fp32 kernel timed at batch 1 too and held to the
+     plain version computed in float64 (FP64_REL_TOL), with bounds (fp32:
+     the 3xTF32 and the FMA-peak one; QDQ: bf16's, QDQ adds no bytes),
+     share of the bound, and each kernel's shared memory (checked against
+     the wrapper's count) and blocks per SM;
+  4. end to end: the engines of artifacts/engines/ (bf16, fp32 from the
+     same weights, int8) on the 10 example JPEGs, held against the port on
+     the CPU and against the committed JAX goldens
+     (tests/goldens/torch_port/classifier_logits.npz, fp32;
+     classifier_int8_logits.npz, int8), with the launch count of each ACFF
+     kernel in each engine forward, each counted from 0; the fp32 kernel,
+     on the inputs each ACFF block of the fp32 engines gets from the
+     golden frames, against the plain version in float64: its largest
+     error (FP64_REL_TOL) and its mean signed error (BIAS_TOL), beside the
+     plain fp32 version's; the QDQ mode on the inputs each block of the
+     int8 engines gets, against its plain version; and a Squeeze_ErNET
+     int8 engine calibrated on the card from the golden frames by both
+     methods, its act_scales against the port's on the CPU (CALIB_RTOL);
   5. timing: Squeeze_ErNET bf16 engine latency at batch 1, 8 and 32 and
-     frames/s at batch 256, its fp32 engine at batch 1 and 256, with peak
-     device memory, and a profiler breakdown by kernel of the bf16
-     batch-256 and batch-1 calls;
+     frames/s at batch 256, its fp32 and int8 engines at batch 1 and 256,
+     with peak device memory, and a profiler breakdown by kernel of the
+     bf16 batch-256 and batch-1 calls and the int8 batch-256 call;
   6. one JSON line of kernels; then the last line, the result.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
@@ -57,6 +64,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "goldens" / "torch_port" / "classifier_logits.npz"
+GOLDEN_INT8 = GOLDEN.with_name("classifier_int8_logits.npz")
 ENGINES = ROOT / "artifacts" / "engines"
 MODELS = ("squeeze-ernet", "squeeze-redconv", "ernet")
 BATCH = 256
@@ -67,10 +75,15 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"fp32": 67e12, "bf16": 989e12, "tf32": 495e12}
 # fp32: the bounds of tests/test_acff_pallas.py. bf16: kernel and plain both
 # round the depthwise features and the output to bf16 (2^-8 relative each);
-# a different summation order can move either rounding by one step.
-KERNEL_TOL = {"fp32": (1e-4, 1e-5), "bf16": (2e-2, 2e-2)}
-DESIGN = {"bf16": "wgmma", "fp32": "3xtf32-wgmma"}
-KERNEL_NAME = {"bf16": "acff_bf16_kernel", "fp32": "acff_fp32_kernel"}
+# a different summation order can move either rounding by one step. int8
+# (the bf16 kernel's QDQ mode): bf16's; a feature one bf16 step away moves
+# by at most one int8 code.
+KERNEL_TOL = {"fp32": (1e-4, 1e-5), "bf16": (2e-2, 2e-2), "int8": (2e-2, 2e-2)}
+DESIGN = {"bf16": "wgmma", "fp32": "3xtf32-wgmma", "int8": "wgmma-qdq"}
+KERNEL_NAME = {"bf16": "acff_bf16_kernel", "fp32": "acff_fp32_kernel",
+               "int8": "acff_bf16_kernel_qdq"}
+DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
+          "int8": torch.bfloat16}
 # fp32 kernel against the plain version computed in float64, relative to
 # max |out|: full fp32 accuracy (3xTF32 reaches ~1e-6; one TF32 product,
 # hi*hi, ~1e-4, which fails)
@@ -81,8 +94,13 @@ FP64_REL_TOL = 1e-5
 # a bias does not average away in the next block's sums as rounding to
 # nearest does; random N(0, 1) inputs, centred on zero, do not show it.
 BIAS_TOL = 1e-7
-# engine logits, relative to max |logit| (tests/test_torch_engine.py)
-LOGIT_REL_TOL = {"fp32": 1e-4, "bf16": 2e-2}
+# engine logits, relative to max |logit| (tests/test_torch_engine.py). int8:
+# below the smallest top-2 margin of the JAX int8 logits on the golden
+# frames (2.9% of max |logit|, ErNET); the port on the CPU is bit-exact.
+LOGIT_REL_TOL = {"fp32": 1e-4, "bf16": 2e-2, "int8": 3e-2}
+# act_scales calibrated on the card against the port on the CPU
+# (tests/test_torch_quant.py holds the port's against JAX's)
+CALIB_RTOL = {"percentile": 1e-4, "entropy": 1e-2}
 LIBRARY_NOTE = ("library_ms: n/a - no single PyTorch call computes the "
                 "fused ACFF block (three dilated depthwise convs, concat, "
                 "1x1 fuse, LeakyReLU, folded BN)")
@@ -166,10 +184,12 @@ def acff_shapes(model: str):
     return shapes
 
 
-def kernel_inputs(rng, b, c, o, h, w, dtype):
-    """The seven arguments of ``acff_infer_plain`` on the card, x in
-    ``dtype``, and fuse_w packed for the kernel of that precision as
-    ``ACFF.packed()`` packs it."""
+def kernel_inputs(rng, b, c, o, h, w, quant):
+    """The seven arguments of ``acff_infer_plain`` on the card, x in the
+    dtype of ``quant``, fuse_w packed for the kernel of that precision as
+    ``ACFF.packed()`` packs it, and for int8 the act_scales: s_x = max |x| /
+    127 for the three branches and s_f = max |features| / 127 of the plain
+    version's bf16 features, so that the codes spread over +-127."""
     eps = 1e-5
     gamma = rng.uniform(0.5, 1.5, o)
     beta, mean = rng.normal(size=o), rng.normal(size=o) * 0.1
@@ -179,13 +199,20 @@ def kernel_inputs(rng, b, c, o, h, w, dtype):
             rng.normal(size=(3, 3, 3, c)) * 0.3, rng.normal(size=(3, c)),
             rng.normal(size=(3 * c, o)) / np.sqrt(3 * c),
             rng.normal(size=o), scale, beta - mean * scale]
-    from rtdm_tpu_torch.ops.acff import (pack_fuse_operand,
+    from rtdm_tpu_torch.ops.acff import (depthwise_features,
+                                         pack_fuse_operand,
                                          pack_fuse_operand_tf32)
+    dtype = DTYPES[quant]
     args = [torch.from_numpy(a.astype(np.float32)).cuda() for a in host]
     args[0] = args[0].to(dtype)
     pack = (pack_fuse_operand if dtype == torch.bfloat16
             else pack_fuse_operand_tf32)
-    return args, pack(args[3])
+    qs = None
+    if quant == "int8":
+        s_x = args[0].float().abs().max().item() / 127
+        feat = depthwise_features(*args[:3])
+        qs = (s_x, s_x, s_x, feat.abs().max().item() / 127)
+    return args, pack(args[3]), qs
 
 
 def bound(b, c, o, h, w, route):
@@ -233,10 +260,11 @@ def footprint(quant, b, c, o, h, w):
     pl = tile_plan(b, h, w)
     smem, per_sm = ctypes.c_int(), ctypes.c_int()
     out = [ctypes.byref(smem), ctypes.byref(per_sm)]
-    if quant == "bf16":
+    if quant in ("bf16", "int8"):
         fn = lib.acff_bf16_footprint
-        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
-        rc = fn(c, o, pl.images * pl.hy * pl.hx * c * 2, *out)
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 2
+        rc = fn(c, o, pl.images * pl.hy * pl.hx * c * 2, int(quant == "int8"),
+                *out)
         counted = bf16_smem_bytes(c, o, pl)
     else:
         fn = lib.acff_fp32_footprint
@@ -252,19 +280,27 @@ def footprint(quant, b, c, o, h, w):
     return smem.value, per_sm.value
 
 
-def check_kernel(rng, b, c, o, h, w, quant, dtype, label):
+def check_kernel(rng, b, c, o, h, w, quant, label):
     """The kernel against its plain version on one random input; returns
-    the inputs, the largest absolute difference, and both outputs."""
+    the inputs (with the packed operand and the act_scales), the largest
+    absolute difference, and both outputs."""
+    args, fuse_op, qs = kernel_inputs(rng, b, c, o, h, w, quant)
+    err, got, want = hold_to_plain(args, fuse_op, qs, quant, label)
+    return (args, fuse_op, qs), err, got, want
+
+
+def hold_to_plain(args, fuse_op, qs, quant, label, tol=None):
+    """One launch of the kernel of ``quant`` against the plain version on
+    the same inputs (``tol`` = (rtol, atol), by default ``KERNEL_TOL``);
+    returns (largest absolute difference, kernel output, plain output)."""
     from rtdm_tpu_torch.ops.acff import acff_infer, acff_infer_plain
-    args, fuse_op = kernel_inputs(rng, b, c, o, h, w, dtype)
-    got = acff_infer(*args, fuse_op)
+    got = acff_infer(*args, fuse_op, act_scales=qs)
     torch.cuda.synchronize()
-    want = acff_infer_plain(*args)
-    rtol, atol = KERNEL_TOL[quant]
+    want = acff_infer_plain(*args, act_scales=qs)
+    rtol, atol = tol or KERNEL_TOL[quant]
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol, msg=lambda m: f"{label}: {m}")
-    err = (got.float() - want.float()).abs().max().item()
-    return args, fuse_op, err, got, want
+    return (got.float() - want.float()).abs().max().item(), got, want
 
 
 def fp64_errors(args, got, want, label):
@@ -328,32 +364,33 @@ def real_input_errors(blocks):
     return rows
 
 
-def phase_kernels(dtypes):
-    """Phase 3: each kernel against its plain version at every main-path
-    shape, at batch 1 (checked and timed), 3 (checked) and 256 (checked,
-    timed, and for fp32 held to the float64 plain version); returns one
-    record per (model, block, precision) at batch 256."""
+def phase_kernels(quants):
+    """Phase 3: each kernel (and the bf16 one's int8 QDQ mode) against its
+    plain version at every main-path shape, at batch 1 (checked and
+    timed), 3 (checked) and 256 (checked, timed, and for fp32 held to the
+    float64 plain version); returns one record per (model, block,
+    precision) at batch 256."""
     from rtdm_tpu_torch.ops.acff import acff_infer, acff_infer_plain
     rng = np.random.default_rng(SEED)
     records = []
     for model in MODELS:
         for block, c, o, h, w in acff_shapes(model):
-            for quant, dtype in dtypes.items():
+            for quant in quants:
                 label = f"{model}/{block} {quant}"
                 small, ms_1 = {}, None
                 for b in (1, 3):
-                    args, fuse_op, small[b], *_ = check_kernel(
-                        rng, b, c, o, h, w, quant, dtype,
-                        f"{label} batch {b}")
+                    (args, fuse_op, qs), small[b], *_ = check_kernel(
+                        rng, b, c, o, h, w, quant, f"{label} batch {b}")
                     if b == 1:
-                        ms_1 = graph_ms(lambda: acff_infer(*args, fuse_op),
-                                        20)
-                args, fuse_op, err, got, want = check_kernel(
-                    rng, BATCH, c, o, h, w, quant, dtype,
-                    f"{label} batch {BATCH}")
-                ms = graph_ms(lambda: acff_infer(*args, fuse_op), 20)
-                plain_ms = graph_ms(lambda: acff_infer_plain(*args), 5)
-                route = "bf16" if quant == "bf16" else "3xtf32"
+                        ms_1 = graph_ms(lambda: acff_infer(
+                            *args, fuse_op, act_scales=qs), 20)
+                (args, fuse_op, qs), err, got, want = check_kernel(
+                    rng, BATCH, c, o, h, w, quant, f"{label} batch {BATCH}")
+                ms = graph_ms(lambda: acff_infer(*args, fuse_op,
+                                                 act_scales=qs), 20)
+                plain_ms = graph_ms(lambda: acff_infer_plain(
+                    *args, act_scales=qs), 5)
+                route = "3xtf32" if quant == "fp32" else "bf16"
                 bound_ms, bound_by, nbytes, ops = bound(BATCH, c, o, h, w,
                                                         route)
                 rec = dict(model=model, block=block, quant=quant,
@@ -366,6 +403,12 @@ def phase_kernels(dtypes):
                 extra = ""
                 rec["smem_bytes"], rec["blocks_per_sm"] = footprint(
                     quant, BATCH, c, o, h, w)
+                if quant == "int8":
+                    rec["differing_share"] = (got != want).float().mean(
+                    ).item()
+                    rec["act_scales"] = list(qs)
+                    extra = (f" outputs differing from plain: "
+                             f"{100 * rec['differing_share']:.4f}%")
                 if quant == "fp32":
                     fma = bound(BATCH, c, o, h, w, "fma")
                     rec.update(fma_bound_ms=fma[0], fma_bound_by=fma[1],
@@ -392,21 +435,51 @@ def phase_kernels(dtypes):
     return records
 
 
-def phase_end_to_end(frames, golden):
+def int8_real_input_errors(blocks):
+    """The QDQ mode on each block's real input from an int8 engine
+    (``acff_inputs``), as the block hands it to the kernel
+    (``ACFF.kernel_input``), against the plain version: per block the
+    largest difference, the limit and the share of outputs that differ.
+
+    The limit is one int8 code of one feature plus two bf16 steps of the
+    output: a depthwise sum taken in another order can round to the other
+    bf16 neighbour and so QDQ to the next code (1 in 10^4 to 10^5 features
+    on the golden frames), which moves an output by up to s_f * max |fuse_w
+    * scale|, whatever the output's own size; the fuse product's rounding
+    to bf16 and the output's are a bf16 step each."""
+    rows = []
+    for name, mod, x in blocks:
+        xk = mod.kernel_input(x)
+        args = mod.packed()
+        one_code = mod.act_scales[3] * (
+            args[2] * args[4]).abs().max().item()
+        err, got, want = hold_to_plain(
+            (xk, *args[:6]), args[6], mod.act_scales, "int8",
+            f"int8 real input {name}", tol=(2.0 ** -7, one_code))
+        rows.append({"block": name, "x": list(xk.shape),
+                     "max_abs_out": want.float().abs().max().item(),
+                     "max_abs_err": err, "limit_one_code": one_code,
+                     "differing_share": (got != want).float().mean().item()})
+    return rows
+
+
+def phase_end_to_end(frames, golden, golden_int8):
     """Phase 4: every engine on the card against the port on the CPU and
-    the JAX golden, and the fp32 kernel on the inputs each block of the
-    fp32 engines gets from the golden frames (``real_input_errors``). The
-    launch counts of the ACFF kernels are set to 0 just before each engine
-    forward and read just after it; returns, by path, the launches of the
-    kernel of that path's precision, and the real-input rows."""
+    the JAX golden of its precision; the fp32 kernel on the inputs each
+    block of the fp32 engines gets from the golden frames
+    (``real_input_errors``), and the QDQ mode on those each block of the
+    int8 engines gets (``int8_real_input_errors``). The launch counts of
+    the ACFF kernels are set to 0 just before each engine forward and read
+    just after it; returns, by path, the launches of the kernel of that
+    path's precision, and the real-input rows by precision."""
     from rtdm_tpu_torch.export.engine import Engine
     from rtdm_tpu_torch.ops.acff import ACFF_KERNEL, LAUNCHES
-    launches, real = {}, []
+    launches, real = {}, {"fp32": [], "int8": []}
 
     def counted(path, n_blocks, eng, x):
         quant = eng.spec.normalized_quant()
         ACFF_KERNEL.launches = 0
-        LAUNCHES.update(bf16=0, fp32=0)
+        LAUNCHES.update(bf16=0, int8=0, fp32=0)
         out = eng(x)
         launches[path] = LAUNCHES[quant]
         want = {q: n_blocks if q == quant else 0 for q in LAUNCHES}
@@ -415,42 +488,45 @@ def phase_end_to_end(frames, golden):
                                  f"forward, expected {want}")
         return out
 
+    def against(logits, want, quant, what):
+        tol = LOGIT_REL_TOL[quant] * np.abs(want).max()
+        err = np.abs(logits - want).max()
+        if not (np.all(np.isfinite(logits)) and err <= tol and
+                np.array_equal(logits.argmax(1), want.argmax(1))):
+            raise AssertionError(f"{what}: max |d|={err} > {tol} or argmax")
+        say(f"e2e {what} max|dlogit|={err:.4e} (limit {tol:.4e}, "
+            f"{err / np.abs(want).max():.3e} of max|logit|), argmax equal")
+
+    def engine_dir(model, quant, loaded, x):
+        path = f"{model}/{quant} engine dir"
+        probs = counted(path, n_blocks, loaded, x)
+        if not (probs.shape == (len(x), loaded.spec.num_classes) and
+                np.allclose(probs.sum(1), 1.0, atol=1e-3)):
+            raise AssertionError(f"{path}: bad probabilities {probs}")
+        say(f"e2e {path}: classes {probs.argmax(1).tolist()}")
+
     for model in MODELS:
         x = frames[model]
         loaded = Engine.load(str(ENGINES / f"{model}_bf16"))
         n_blocks = sum(1 for n, _ in loaded.model.named_children()
                        if n.startswith("acff"))
+        gx = golden[f"frames_{loaded.spec.image_size}"]
         for quant in ("bf16", "fp32"):
             spec = dataclasses.replace(loaded.spec, quant=quant,
                                        with_softmax=False)
             eng = Engine(spec, loaded.variables)
             cpu = Engine(dataclasses.replace(spec, batch_size=16),
                          loaded.variables, device="cpu")
-            logits = counted(f"{model}/{quant}", n_blocks, eng, x)
-            want = cpu(x)
-            tol = LOGIT_REL_TOL[quant] * np.abs(want).max()
-            err = np.abs(logits - want).max()
-            if not (np.all(np.isfinite(logits)) and err <= tol and
-                    np.array_equal(logits.argmax(1), want.argmax(1))):
-                raise AssertionError(f"{model} {quant}: card vs CPU logits "
-                                     f"max |d|={err} > {tol} or argmax")
-            say(f"e2e {model} {quant}: card vs port-on-CPU max|dlogit|="
-                f"{err:.4e} (limit {tol:.4e}), argmax equal")
+            against(counted(f"{model}/{quant}", n_blocks, eng, x), cpu(x),
+                    quant, f"{model} {quant}: card vs port-on-CPU")
             if quant == "fp32":
-                ref = golden[model]
-                with acff_inputs(eng.model, len(ref)) as blocks:
+                with acff_inputs(eng.model, len(gx)) as blocks:
                     gl = counted(f"{model}/fp32 golden frames", n_blocks,
-                                 eng, golden[f"frames_{spec.image_size}"])
-                gerr = np.abs(gl - ref).max()
-                gtol = LOGIT_REL_TOL["fp32"] * np.abs(ref).max()
-                if not (gerr <= gtol and
-                        np.array_equal(gl.argmax(1), ref.argmax(1))):
-                    raise AssertionError(f"{model} fp32: card vs JAX golden "
-                                         f"max |d|={gerr} > {gtol} or argmax")
-                say(f"e2e {model} fp32: card vs JAX golden max|dlogit|="
-                    f"{gerr:.4e} (limit {gtol:.4e}), argmax equal")
+                                 eng, gx)
+                against(gl, golden[model], "fp32",
+                        f"{model} fp32: card vs JAX golden")
                 for row in real_input_errors(blocks):
-                    real.append({"model": model, **row})
+                    real["fp32"].append({"model": model, **row})
                     say(f"real inputs {model}/{row['block']} x={row['x']}: "
                         f"vs fp64, of max|out| {row['max_abs_out']:.3e}: "
                         f"kernel {row['kernel_max']:.3e}, plain "
@@ -464,30 +540,88 @@ def phase_end_to_end(frames, golden):
                             f"{model}/{row['block']}: the fp32 kernel on "
                             f"real inputs is outside its limits")
                 del blocks
-        probs = counted(f"{model}/{loaded.spec.quant} engine dir", n_blocks,
-                        loaded, x)
-        if not (probs.shape == (len(x), loaded.spec.num_classes) and
-                np.allclose(probs.sum(1), 1.0, atol=1e-3)):
-            raise AssertionError(f"{model}: bad probabilities {probs}")
-        say(f"e2e {model} {loaded.spec.quant} engine dir: classes "
-            f"{probs.argmax(1).tolist()}")
+        engine_dir(model, "bf16", loaded, x)
+
+        # int8: the committed engine directory, its logits against the port
+        # on the CPU and the JAX int8 golden
+        loaded = Engine.load(str(ENGINES / f"{model}_int8"))
+        spec = dataclasses.replace(loaded.spec, with_softmax=False)
+        eng = Engine(spec, loaded.variables, loaded.act_scales)
+        cpu = Engine(dataclasses.replace(spec, batch_size=16),
+                     loaded.variables, loaded.act_scales, device="cpu")
+        against(counted(f"{model}/int8", n_blocks, eng, x), cpu(x), "int8",
+                f"{model} int8: card vs port-on-CPU")
+        with acff_inputs(eng.model, len(gx)) as blocks:
+            gl = counted(f"{model}/int8 golden frames", n_blocks, eng, gx)
+        against(gl, golden_int8[model], "int8",
+                f"{model} int8: card vs JAX int8 golden")
+        for row in int8_real_input_errors(blocks):
+            real["int8"].append({"model": model, **row})
+            say(f"real inputs {model}/{row['block']} int8 x={row['x']}: "
+                f"QDQ mode vs plain max|d| {row['max_abs_err']:.3e} (one "
+                f"code {row['limit_one_code']:.3e} + 2^-7 |out|; max|out| "
+                f"{row['max_abs_out']:.3e}), outputs differing "
+                f"{100 * row['differing_share']:.4f}%")
+        del blocks
+        engine_dir(model, "int8", loaded, x)
     for path, n in launches.items():
-        say(f"ACFF kernel launches ({KERNEL_NAME[path.split('/')[1][:4]]}), "
-            f"one forward of {path}: {n}")
+        quant = path.split("/")[1].split()[0]
+        say(f"ACFF kernel launches ({KERNEL_NAME[quant]}), one forward of "
+            f"{path}: {n}")
     return launches, real
+
+
+def phase_calibration(golden):
+    """Phase 4, calibration: the Squeeze_ErNET int8 engine built on the
+    card from the golden frames by both methods; its act_scales against
+    the port's on the CPU (``CALIB_RTOL``)."""
+    from rtdm_tpu_torch.export.engine import build_engine
+    from rtdm_tpu_torch.models.io import load_variables
+    variables = load_variables(str(ENGINES / "squeeze-ernet_int8" /
+                                   "params.npz"))
+    frames = golden["frames_140"]
+    rows = {}
+    for method in ("percentile", "entropy"):
+        t0 = time.perf_counter()
+        card = build_engine("squeeze-ernet", variables, "int8", batch_size=16,
+                            calib_images=frames, calib_method=method)
+        card_s = time.perf_counter() - t0
+        cpu = build_engine("squeeze-ernet", variables, "int8", batch_size=16,
+                           calib_images=frames, calib_method=method,
+                           verify=False, device="cpu")
+        a, b = card.act_scales, cpu.act_scales
+        if sorted(a) != sorted(b):
+            raise AssertionError(f"calibration {method}: keys differ")
+        rel = max(abs(float(a[k]) - float(b[k])) / float(b[k]) for k in a)
+        if not rel <= CALIB_RTOL[method]:
+            raise AssertionError(f"calibration {method}: card vs CPU act "
+                                 f"scales differ by {rel:.3e} relative > "
+                                 f"{CALIB_RTOL[method]}")
+        rows[method] = {"keys": len(a), "max_rel_diff": rel,
+                        "card_build_s": card_s}
+        say(f"calibration squeeze-ernet {method} on the card ({len(frames)} "
+            f"frames, build {card_s:.2f} s): {len(a)} scales, max rel "
+            f"diff vs port-on-CPU {rel:.3e} (limit {CALIB_RTOL[method]})")
+    return rows
 
 
 def phase_timing(frames, card):
     """Phase 5: latency of the Squeeze_ErNET bf16 engine at batch 1, 8, 32
-    and 256 (frames/s at 256) and of its fp32 engine at batch 1 and 256;
-    returns the bf16 engine and frames of each batch size."""
+    and 256 (frames/s at 256), of its fp32 engine at batch 1 and 256 and
+    of its int8 engine (the committed directory's weights and act_scales)
+    at batch 1 and 256; returns {(quant, batch): (engine, frames)} for the
+    bf16 and int8 engines."""
     from rtdm_tpu_torch.export.engine import Engine
-    loaded = Engine.load(str(ENGINES / "squeeze-ernet_bf16"))
     engines = {}
-    for quant, batches in (("bf16", (1, 8, 32, 256)), ("fp32", (1, 256))):
+    for quant, batches in (("bf16", (1, 8, 32, 256)), ("fp32", (1, 256)),
+                           ("int8", (1, 256))):
+        loaded = Engine.load(str(ENGINES / ("squeeze-ernet_int8"
+                                            if quant == "int8" else
+                                            "squeeze-ernet_bf16")))
         for b in batches:
             eng = Engine(dataclasses.replace(loaded.spec, quant=quant,
-                                             batch_size=b), loaded.variables)
+                                             batch_size=b), loaded.variables,
+                         loaded.act_scales)
             x = np.resize(frames["squeeze-ernet"], (b, 140, 140, 3))
             for _ in range(5):
                 eng(x)
@@ -506,8 +640,8 @@ def phase_timing(frames, card):
                 f"ms, p90 {p90:.4f} ms (n=100, host clock); device "
                 f"{device_ms:.4f} ms/forward (CUDA events); peak memory "
                 f"{mem} B [{card}]")
-            if quant == "bf16":
-                engines[b] = eng, x
+            if quant != "fp32":
+                engines[quant, b] = eng, x
         say(f"throughput squeeze-ernet {quant} batch 256: {256e3 / med:.1f} "
             f"frames/s (median) [{card}]")
     return engines
@@ -536,7 +670,8 @@ def phase_profile(eng, x, card, forwards=5):
         say("profile: the profiler recorded no device time; breakdown not "
             "measured")
         return
-    say(f"profile squeeze-ernet bf16 batch {eng.spec.batch_size}, "
+    say(f"profile squeeze-ernet {eng.spec.normalized_quant()} batch "
+        f"{eng.spec.batch_size}, "
         f"{forwards} calls: device busy {busy / forwards:.1f} us/call of "
         f"{wall_us / forwards:.1f} us/call host clock "
         f"({100 * busy / wall_us:.1f}% busy) [{card}]")
@@ -582,12 +717,14 @@ def main() -> int:
                              "HGMMA (wgmma) instructions")
 
     # 3. kernel vs plain
-    records = phase_kernels({"fp32": torch.float32, "bf16": torch.bfloat16})
+    records = phase_kernels(("fp32", "bf16", "int8"))
 
     # 4. end to end
     from rtdm_tpu_torch.cli.aider_predict import load_image_rgb, preprocess
     with np.load(GOLDEN) as g:
         golden = dict(g)
+    with np.load(GOLDEN_INT8) as g:
+        golden_int8 = dict(g)
     examples = [ROOT / "docs" / "examples" / str(n) for n in golden["names"]]
     by_size = {}
     for s in (140, 240):
@@ -597,18 +734,22 @@ def main() -> int:
         say(f"preprocess {s}: max |d| vs the golden's frames = {diff} "
             f"(PIL resampling of this machine)")
     frames = {m: by_size[240 if m == "ernet" else 140] for m in MODELS}
-    launches, real = phase_end_to_end(frames, golden)
+    launches, real = phase_end_to_end(frames, golden, golden_int8)
+    calibration = phase_calibration(golden)
 
     # 5. timing
     engines = phase_timing(frames, card)
-    for b in (256, 1):    # batch 1 is host-bound: its device busy share
-        phase_profile(*engines[b], card)
+    # batch 1 is host-bound: its device busy share
+    for key in (("bf16", 256), ("bf16", 1), ("int8", 256)):
+        phase_profile(*engines[key], card)
 
-    # 6. kernels line: one entry a kernel, summed over the ACFF blocks of
-    # one forward of its main path (the Squeeze_ErNET engine of its
-    # precision), launches counted in that forward
+    # 6. kernels line: one entry a kernel (the QDQ mode of the bf16 kernel
+    # its own), summed over the ACFF blocks of one forward of its main path
+    # (the Squeeze_ErNET engine of its precision), launches counted in that
+    # forward
     main = {"bf16": "squeeze-ernet/bf16 engine dir",
-            "fp32": "squeeze-ernet/fp32"}
+            "fp32": "squeeze-ernet/fp32",
+            "int8": "squeeze-ernet/int8 engine dir"}
     kernels_line = []
     for quant, path in main.items():
         rows = [r for r in records
@@ -635,8 +776,10 @@ def main() -> int:
                                   if p.split("/")[1].startswith(quant)},
             "per_shape": [r for r in records if r["quant"] == quant],
         })
-        if quant == "fp32":
-            kernels_line[-1]["real_inputs"] = real
+        if quant in real:
+            kernels_line[-1]["real_inputs"] = real[quant]
+        if quant == "int8":
+            kernels_line[-1]["calibration"] = calibration
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(f"card: {card}")
     say(json.dumps({"kernels": kernels_line}))

@@ -3,10 +3,11 @@
 Counterpart of ``rtdm_tpu/cli/aider_predict.py``: load an image, apply the
 eval transform (resize 1.14x short side, center crop; ImageNet normalize on
 the device), run the classifier, print class + softmax confidence.
-``--engine`` loads an engine directory (``export/engine.py``);
-``--weights x.npz --model m`` runs the raw weights through an in-memory
-batch-1 engine at ``--quant`` (fp32 by default, with TF32 off). Runs on the
-card unless ``--device cpu``.
+``--engine`` loads an engine directory (``export/engine.py``), int8 ones
+included; ``--weights x.npz --model m`` runs the raw weights through an
+in-memory batch-1 engine at ``--quant`` (fp32 by default, with TF32 off;
+int8 calibrates on the image itself, repeated 8 times, as the JAX CLI
+does). Runs on the card unless ``--device cpu``.
 
 Run: python -m rtdm_tpu_torch.cli.aider_predict --image x.jpg \
          --engine artifacts/engines/squeeze-ernet_bf16
@@ -73,9 +74,16 @@ def main(argv=None):
                 f"precision ({engine.spec.quant}) — pass the matching "
                 f"engine dir")
     else:
+        from rtdm_tpu_torch.models.ernet import input_size_for
         from rtdm_tpu_torch.models.io import load_variables
+        quant = args.quant or "fp32"
+        calib = None
+        if quant == "int8":
+            calib = np.repeat(preprocess(load_image_rgb(args.image),
+                                         input_size_for(args.model)), 8,
+                              axis=0)
         engine = build_engine(args.model, load_variables(args.weights),
-                              quant=args.quant or "fp32", batch_size=1,
+                              quant=quant, batch_size=1, calib_images=calib,
                               verify=False, device=args.device)
     image = preprocess(load_image_rgb(args.image), engine.spec.image_size)
     t0 = time.perf_counter()

@@ -1,8 +1,9 @@
 """Engine precisions and the float-cast helper.
 
 Counterpart of ``rtdm_tpu/core/precision.py::_cast_floating``. The engine
-runs fp32 or bf16; ``fp16`` and ``half`` name bf16, as they do for the JAX
-engine, so a true fp16 engine does not exist in either package.
+runs fp32, bf16 or int8 QDQ, which computes in bf16 as the JAX int8 engine
+does; ``fp16`` and ``half`` name bf16, as they do for the JAX engine, so a
+true fp16 engine does not exist in either package.
 """
 
 from __future__ import annotations
@@ -11,7 +12,9 @@ from typing import Dict, Mapping
 
 import torch
 
-ENGINE_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16}
+# the dtype each engine precision computes in
+ENGINE_DTYPES = {"fp32": torch.float32, "bf16": torch.bfloat16,
+                 "int8": torch.bfloat16}
 
 
 def normalized_quant(quant: str) -> str:

@@ -44,6 +44,22 @@
 //   work. This design took 0.233, 0.107, 0.056 and 0.021 ms at the four
 //   Squeeze_ErNET blocks (chip_smoke.py, same card): the depthwise pass,
 //   bound by shared-memory loads, is the largest phase.
+// - int8 QDQ mode (acff_bf16_kernel<NH, true>, the ACFF block of the int8
+//   engine; the JAX int8 engine runs the unfused flax block under QDQ
+//   interception): the same tile, product and stores, with the rounding
+//   steps of that engine where the features are staged. Each box column
+//   is QDQ'd with its branch's scale where dw_row/dw_pixel load it, the
+//   sums start at 0, and each feature goes to A as QDQ(bf16(bf16(sum) +
+//   bf16(bias))); the epilogue rounds the product, the bias sum and
+//   LeakyReLU to bf16 before BN. QDQ adds no bytes, so the bound is the
+//   bf16 one; it adds ALU work to the depthwise, whose loads of a box
+//   element are each QDQ'd again (9 times over the three rows and
+//   branches), and registers (217 at O = 96-256: one block per SM at
+//   acff2, two in bf16). It took 2.7x, 3.3x, 2.6x and 1.7x the bf16 time
+//   at the four Squeeze_ErNET blocks (chip_smoke.py, same card), the
+//   depthwise 72-79% of it at acff1-3 (scripts/acff_phase_times.py
+//   --quant int8). Calibration gives the three branches one scale: QDQ of
+//   the box once where it lands is the next step.
 //
 // fp32 kernel (acff_fp32_kernel<O/2>), full fp32 accuracy: the fp32
 // engine turns TF32 off, so the fuse product runs as 3xTF32. Bound: at
@@ -327,6 +343,47 @@ __device__ __forceinline__ float2 bf16x2_to_float2(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
+// ---------------------------------------------------- int8 QDQ mode (Q)
+// The int8 engine's activation QDQ, as XLA compiles the JAX int8 engine:
+// q = clamp(rint(v * inv), -127, 127), value q * s, with inv the fp32
+// reciprocal of s (XLA turns the division by a constant scale into that
+// multiply) and rint rounding half to even, like jnp.round.
+struct Qdq {
+  float s[4], inv[4];   // the three depthwise inputs, then the fuse input
+};
+
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float qdq(float v, float s, float inv) {
+  return fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f) * s;
+}
+
+// x as branch D reads it in QDQ mode: bf16(QDQ(x, s_D)); QDQ(0) = 0, so
+// the TMA zero fill stays the padding.
+template <bool Q, int D>
+__device__ __forceinline__ float2 x_in(float2 v, const Qdq& qd) {
+  if constexpr (Q) {
+    v.x = bf16r(qdq(v.x, qd.s[D], qd.inv[D]));
+    v.y = bf16r(qdq(v.y, qd.s[D], qd.inv[D]));
+  }
+  return v;
+}
+
+// A depthwise feature as the fuse product reads it, from its sum without
+// the bias in QDQ mode, as the JAX int8 engine rounds a bf16 depthwise
+// conv and its concat: bf16(bf16(sum) + bf16(bias)), QDQ'd with the fuse
+// input's scale (rounded to bf16 where A is written). Without Q the sum
+// already holds the bias.
+template <bool Q>
+__device__ __forceinline__ float feature(float sum, float bias,
+                                         const Qdq& qd) {
+  if constexpr (Q)
+    return qdq(bf16r(bf16r(sum) + bf16r(bias)), qd.s[3], qd.inv[3]);
+  return sum;
+}
+
 // Depthwise branch D of a spatial tile (8x8 pixels, 14x14 box from
 // (oy0-2, ox0-2)) for SEG pixels px0.. of tile row py and channels
 // 4q..4q+3, into A. Dilation S = D+1: pixel px, tap (kh, kw) reads box row
@@ -334,19 +391,20 @@ __device__ __forceinline__ float2 bf16x2_to_float2(uint32_t v) {
 // loaded once each and feed every (px, kw) that reads them: SEG pixels x 4
 // channels of fp32 sums in registers; at SEG = 8, 1.5 bytes of
 // shared-memory loads per FMA.
-template <int D, int SEG>
+template <int D, int SEG, bool Q>
 __device__ __forceinline__ void dw_row(const __nv_bfloat16* box,
                                        const float* wts, unsigned char* a_s,
                                        int C, int q, int py, int px0,
-                                       int kp8) {
+                                       int kp8, const Qdq& qd) {
   constexpr int S = D + 1, NCOL = SEG + 2 * S, HX = 14;
   float acc[SEG][4];
   const float4 bias = *reinterpret_cast<const float4*>(wts + 27 * C + D * C +
                                                        q * 4);
+  const float4 init = Q ? make_float4(0.f, 0.f, 0.f, 0.f) : bias;
 #pragma unroll
   for (int px = 0; px < SEG; ++px) {
-    acc[px][0] = bias.x; acc[px][1] = bias.y;
-    acc[px][2] = bias.z; acc[px][3] = bias.w;
+    acc[px][0] = init.x; acc[px][1] = init.y;
+    acc[px][2] = init.z; acc[px][3] = init.w;
   }
 #pragma unroll
   for (int kh = 0; kh < 3; ++kh) {
@@ -360,7 +418,8 @@ __device__ __forceinline__ void dw_row(const __nv_bfloat16* box,
 #pragma unroll
     for (int c = 0; c < NCOL; ++c) {
       const uint2 v = *reinterpret_cast<const uint2*>(row + c * C);
-      const float2 lo = bf16x2_to_float2(v.x), hi = bf16x2_to_float2(v.y);
+      const float2 lo = x_in<Q, D>(bf16x2_to_float2(v.x), qd);
+      const float2 hi = x_in<Q, D>(bf16x2_to_float2(v.y), qd);
 #pragma unroll
       for (int kw = 0; kw < 3; ++kw) {
         const int px = c - kw * S;
@@ -378,24 +437,27 @@ __device__ __forceinline__ void dw_row(const __nv_bfloat16* box,
       a_s + a_offset(py * 8 + px0, k >> 3, kp8) + (k & 7) * 2;
 #pragma unroll
   for (int px = 0; px < SEG; ++px)
-    *reinterpret_cast<uint2*>(dst + px * 16) =
-        make_uint2(bf16x2(acc[px][0], acc[px][1]),
-                   bf16x2(acc[px][2], acc[px][3]));
+    *reinterpret_cast<uint2*>(dst + px * 16) = make_uint2(
+        bf16x2(feature<Q>(acc[px][0], bias.x, qd),
+               feature<Q>(acc[px][1], bias.y, qd)),
+        bf16x2(feature<Q>(acc[px][2], bias.z, qd),
+               feature<Q>(acc[px][3], bias.w, qd)));
 }
 
 // Branch d of the spatial depthwise, its rows cut into 8/SEG segments.
-template <int SEG>
+template <int SEG, bool Q>
 __device__ __forceinline__ void dw_rows(const __nv_bfloat16* box,
                                         const float* wts, unsigned char* a_s,
-                                        int C, int kp8, int tid) {
+                                        int C, int kp8, int tid,
+                                        const Qdq& qd) {
   constexpr int NSEG = 8 / SEG;
   const int C4 = C >> 2;
   for (int i = tid; i < 3 * 8 * NSEG * C4; i += BTHREADS) {
     const int q = i % C4, r = i / C4, seg = r % NSEG, py = (r / NSEG) & 7;
     const int d = r / (8 * NSEG), px0 = seg * SEG;
-    if (d == 0) dw_row<0, SEG>(box, wts, a_s, C, q, py, px0, kp8);
-    else if (d == 1) dw_row<1, SEG>(box, wts, a_s, C, q, py, px0, kp8);
-    else dw_row<2, SEG>(box, wts, a_s, C, q, py, px0, kp8);
+    if (d == 0) dw_row<0, SEG, Q>(box, wts, a_s, C, q, py, px0, kp8, qd);
+    else if (d == 1) dw_row<1, SEG, Q>(box, wts, a_s, C, q, py, px0, kp8, qd);
+    else dw_row<2, SEG, Q>(box, wts, a_s, C, q, py, px0, kp8, qd);
   }
 }
 
@@ -412,16 +474,18 @@ __device__ __forceinline__ bool tile_pixel(const Plan& pl, int p, int b0,
   return img < pl.images && b0 + img < B && oy0 + py < OH && ox0 + px < OW;
 }
 
-// Depthwise branch d of one pixel of a whole-image tile (the box is the
+// Depthwise branch D of one pixel of a whole-image tile (the box is the
 // image itself) for channels 8g..8g+7; taps outside the image are zero.
+template <int D, bool Q>
 __device__ __forceinline__ uint4 dw_pixel(const __nv_bfloat16* box,
                                           const float* wts, const Plan& pl,
                                           int C, int img, int py, int px,
-                                          int d, int g) {
+                                          int g, const Qdq& qd) {
+  constexpr int d = D;
   float acc[8];
   const float* bias = wts + 27 * C + d * C + g * 8;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) acc[e] = bias[e];
+  for (int e = 0; e < 8; ++e) acc[e] = Q ? 0.f : bias[e];
   const int step = d + 1;
   const __nv_bfloat16* src = box + (size_t)img * pl.hy * pl.hx * C + g * 8;
 #pragma unroll
@@ -437,8 +501,10 @@ __device__ __forceinline__ uint4 dw_pixel(const __nv_bfloat16* box,
       const float4* wk = reinterpret_cast<const float4*>(
           wts + ((d * 3 + kh) * 3 + kw) * C + g * 8);
       const float4 w0 = wk[0], w1 = wk[1];
-      const float2 x0 = bf16x2_to_float2(v.x), x1 = bf16x2_to_float2(v.y);
-      const float2 x2 = bf16x2_to_float2(v.z), x3 = bf16x2_to_float2(v.w);
+      const float2 x0 = x_in<Q, D>(bf16x2_to_float2(v.x), qd);
+      const float2 x1 = x_in<Q, D>(bf16x2_to_float2(v.y), qd);
+      const float2 x2 = x_in<Q, D>(bf16x2_to_float2(v.z), qd);
+      const float2 x3 = x_in<Q, D>(bf16x2_to_float2(v.w), qd);
       acc[0] = fmaf(x0.x, w0.x, acc[0]);
       acc[1] = fmaf(x0.y, w0.y, acc[1]);
       acc[2] = fmaf(x1.x, w0.z, acc[2]);
@@ -449,14 +515,47 @@ __device__ __forceinline__ uint4 dw_pixel(const __nv_bfloat16* box,
       acc[7] = fmaf(x3.y, w1.w, acc[7]);
     }
   }
+#pragma unroll
+  for (int e = 0; e < 8; ++e) acc[e] = feature<Q>(acc[e], bias[e], qd);
   return make_uint4(bf16x2(acc[0], acc[1]), bf16x2(acc[2], acc[3]),
                     bf16x2(acc[4], acc[5]), bf16x2(acc[6], acc[7]));
+}
+
+template <bool Q>
+__device__ __forceinline__ uint4 dw_pixel_branch(const __nv_bfloat16* box,
+                                                 const float* wts,
+                                                 const Plan& pl, int C,
+                                                 int img, int py, int px,
+                                                 int d, int g,
+                                                 const Qdq& qd) {
+  if (d == 0) return dw_pixel<0, Q>(box, wts, pl, C, img, py, px, g, qd);
+  if (d == 1) return dw_pixel<1, Q>(box, wts, pl, C, img, py, px, g, qd);
+  return dw_pixel<2, Q>(box, wts, pl, C, img, py, px, g, qd);
+}
+
+// The fuse product's sum plus its bias, through LeakyReLU(0.01). In QDQ
+// mode rounded as the JAX int8 engine's bf16 1x1 conv, bias add and
+// LeakyReLU are (its slope is bf16(0.01)); BN follows in fp32.
+template <bool Q>
+__device__ __forceinline__ float epilogue(float sum, float bias) {
+  if constexpr (Q) {
+    const float v = bf16r(bf16r(sum) + bf16r(bias));
+    return v >= 0.f ? v : bf16r(v * 0.0100097656f);
+  }
+  const float v = sum + bias;
+  return v > 0.f ? v : 0.01f * v;
 }
 
 // At O = 64 (the first, widest blocks: C = 8 or 16, the most tiles) four
 // blocks share an SM; 64 registers a thread hold their 4- and 2-pixel
 // depthwise segments without spills.
-template <int NH>
+// Q: the int8 QDQ mode (ops/acff.py::acff_infer_plain with act_scales):
+// x QDQ'd per branch where the box columns are read, each feature's sum
+// without the bias rounded and QDQ'd where A is written (feature), and
+// the epilogue rounded as the JAX int8 engine rounds its fuse conv,
+// bias, LeakyReLU and BN (epilogue). Without Q, qd is not read and the
+// kernel is the plain bf16 one.
+template <int NH, bool Q>
 __global__ void __launch_bounds__(BTHREADS, NH == 32 ? 4 : 1)
 acff_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
                  const float* __restrict__ dw_w, const float* __restrict__ dw_b,
@@ -465,7 +564,7 @@ acff_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
                  const float* __restrict__ scale,
                  const float* __restrict__ shift,
                  __nv_bfloat16* __restrict__ out, int B, int H, int W, int C,
-                 const Plan pl, int n_tiles) {
+                 const Plan pl, int n_tiles, const Qdq qd) {
   constexpr int O = 2 * NH;
   constexpr int SROW = O * 2 + 16;   // output tile row, padded: no conflicts
   extern __shared__ unsigned char smem_raw[];
@@ -536,9 +635,9 @@ acff_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
     if (pl.origin == 2) {
       // Spatial tile: one (branch, row segment, 4-channel group) an item;
       // shorter segments where C is small, so that most threads get one.
-      if (C >= 48) dw_rows<8>(box, wts, a_s, C, kp8, tid);
-      else if (C >= 16) dw_rows<4>(box, wts, a_s, C, kp8, tid);
-      else dw_rows<2>(box, wts, a_s, C, kp8, tid);
+      if (C >= 48) dw_rows<8, Q>(box, wts, a_s, C, kp8, tid, qd);
+      else if (C >= 16) dw_rows<4, Q>(box, wts, a_s, C, kp8, tid, qd);
+      else dw_rows<2, Q>(box, wts, a_s, C, kp8, tid, qd);
     } else {
       // Whole images: one (branch d, pixel p, 8-channel group g) an item.
       // Eight neighbouring threads take the eight pixels of one A
@@ -552,7 +651,7 @@ acff_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
                                      py, px);
         // A[p][k], k = d*C + 8g: core matrix (p/8, k/8), row p%8.
         *reinterpret_cast<uint4*>(a_s + a_offset(p, d * C8 + g, kp8)) =
-            live ? dw_pixel(box, wts, pl, C, img, py, px, d, g)
+            live ? dw_pixel_branch<Q>(box, wts, pl, C, img, py, px, d, g, qd)
                  : make_uint4(0, 0, 0, 0);
       }
     }
@@ -596,10 +695,8 @@ acff_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
       const float2 sh = *reinterpret_cast<const float2*>(shift + col);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        float v0 = acc[4 * n + 2 * i] + fb.x;
-        float v1 = acc[4 * n + 2 * i + 1] + fb.y;
-        v0 = v0 > 0.f ? v0 : 0.01f * v0;
-        v1 = v1 > 0.f ? v1 : 0.01f * v1;
+        const float v0 = epilogue<Q>(acc[4 * n + 2 * i], fb.x);
+        const float v1 = epilogue<Q>(acc[4 * n + 2 * i + 1], fb.y);
         *reinterpret_cast<uint32_t*>(buf + (row0 + 8 * i) * SROW + col * 2) =
             bf16x2(fmaf(v0, sc.x, sh.x), fmaf(v1, sc.y, sh.y));
       }
@@ -1234,12 +1331,12 @@ cudaError_t persistent_grid(int bytes, int n_tiles, int* grid) {
   return e;
 }
 
-template <int NH>
+template <int NH, bool Q>
 cudaError_t launch_bf16(const void* x, const float* dw_w, const float* dw_b,
                         const void* fuse_op, const float* fuse_b,
                         const float* scale, const float* shift, void* out,
                         int B, int H, int W, int C, const Plan& pl,
-                        int n_tiles, cudaStream_t stream) {
+                        int n_tiles, const Qdq& qd, cudaStream_t stream) {
   CUtensorMap map;
   cudaError_t e = encode_box(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, B,
                              H, W, C, C, pl);
@@ -1247,12 +1344,12 @@ cudaError_t launch_bf16(const void* x, const float* dw_w, const float* dw_b,
       Smem(C, 2 * NH, pl.images * pl.hy * pl.hx * C * 2).total + 128;
   int grid = 0;
   if (e == cudaSuccess)
-    e = persistent_grid<acff_bf16_kernel<NH>>(bytes, n_tiles, &grid);
+    e = persistent_grid<acff_bf16_kernel<NH, Q>>(bytes, n_tiles, &grid);
   if (e != cudaSuccess) return e;
-  acff_bf16_kernel<NH><<<grid, BTHREADS, bytes, stream>>>(
+  acff_bf16_kernel<NH, Q><<<grid, BTHREADS, bytes, stream>>>(
       map, dw_w, dw_b, static_cast<const __nv_bfloat16*>(fuse_op), fuse_b,
       scale, shift, static_cast<__nv_bfloat16*>(out), B, H, W, C, pl,
-      n_tiles);
+      n_tiles, qd);
   return cudaGetLastError();
 }
 
@@ -1303,6 +1400,9 @@ cudaError_t by_width(int O, F&& f) {
 
 // Plain C interface, loaded with ctypes. Launches on `stream`, allocates
 // nothing, does not synchronise; returns a CUDA error code (0 on success).
+// mode: 0 fp32 x, 1 bf16 x, 2 bf16 x in int8 QDQ mode (ops/acff.py::MODES)
+// with the activation scales s_x1, s_x2, s_x3 (depthwise inputs) and s_f
+// (fuse input), finite and > 0; they are not read in the other modes.
 // fuse_op is fuse_w packed for the kernel of x's dtype
 // (ops/acff.py::pack_fuse_operand for bf16, pack_fuse_operand_tf32 for
 // fp32, in chunks of fp32_chunk(C) channels); th .. n_tiles are the tile
@@ -1311,10 +1411,11 @@ extern "C" int acff_infer_launch(const void* x, const float* dw_w,
                                  const float* dw_b, const void* fuse_op,
                                  const float* fuse_b, const float* scale,
                                  const float* shift, void* out, int B, int H,
-                                 int W, int C, int O, int x_is_bf16, int th,
+                                 int W, int C, int O, int mode, int th,
                                  int tw, int images, int tiles_h, int tiles_w,
                                  int hy, int hx, int origin, int n_tiles,
-                                 void* stream) {
+                                 float s_x1, float s_x2, float s_x3,
+                                 float s_f, void* stream) {
   const Plan pl{th, tw, images, tiles_h, tiles_w, hy, hx, origin};
   const int per_batch = (B + images - 1) / (images > 0 ? images : 1);
   // The two tile shapes of tile_plan: 8x8 spatial tiles with a 14x14 box
@@ -1329,7 +1430,8 @@ extern "C" int acff_infer_launch(const void* x, const float* dw_w,
       n_tiles != per_batch * tiles_h * tiles_w)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!x_is_bf16) {
+  if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode == 0) {
     if (C % 4) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(by_width(O, [&](auto nh) {
       return launch_fp32<decltype(nh)::value>(x, dw_w, dw_b, fuse_op, fuse_b,
@@ -1338,21 +1440,36 @@ extern "C" int acff_infer_launch(const void* x, const float* dw_w,
     }));
   }
   if (C % 8 || C > 256) return static_cast<int>(cudaErrorInvalidValue);
+  Qdq qd{{s_x1, s_x2, s_x3, s_f}, {}};
+  for (int i = 0; i < 4 && mode == 2; ++i) {
+    const float v = qd.s[i];
+    if (!(v > 0.f && v <= 3.4e38f)) return static_cast<int>(cudaErrorInvalidValue);
+    qd.inv[i] = 1.0f / v;   // IEEE division on the host: the fp32 reciprocal
+  }
   return static_cast<int>(by_width(O, [&](auto nh) {
-    return launch_bf16<decltype(nh)::value>(x, dw_w, dw_b, fuse_op, fuse_b,
-                                            scale, shift, out, B, H, W, C, pl,
-                                            n_tiles, s);
+    constexpr int NH = decltype(nh)::value;
+    return mode == 2
+               ? launch_bf16<NH, true>(x, dw_w, dw_b, fuse_op, fuse_b, scale,
+                                       shift, out, B, H, W, C, pl, n_tiles,
+                                       qd, s)
+               : launch_bf16<NH, false>(x, dw_w, dw_b, fuse_op, fuse_b,
+                                        scale, shift, out, B, H, W, C, pl,
+                                        n_tiles, qd, s);
   }));
 }
 
 // The bf16 kernel's dynamic shared memory for C, O and an input box of
-// box_bytes, and how many of its blocks fit on one SM.
-extern "C" int acff_bf16_footprint(int C, int O, int box_bytes,
+// box_bytes, and how many of its blocks fit on one SM, in QDQ mode where
+// qdq is not 0.
+extern "C" int acff_bf16_footprint(int C, int O, int box_bytes, int qdq,
                                    int* smem_bytes, int* blocks_per_sm) {
   return static_cast<int>(by_width(O, [&](auto nh) {
     constexpr int NH = decltype(nh)::value;
     *smem_bytes = Smem(C, 2 * NH, box_bytes).total + 128;
-    return configure<acff_bf16_kernel<NH>>(*smem_bytes, blocks_per_sm);
+    return qdq ? configure<acff_bf16_kernel<NH, true>>(*smem_bytes,
+                                                       blocks_per_sm)
+               : configure<acff_bf16_kernel<NH, false>>(*smem_bytes,
+                                                        blocks_per_sm);
   }));
 }
 

@@ -7,12 +7,16 @@ format the JAX package reads and writes, so every classifier directory in
 network, optional softmax — runs at the spec's fixed batch: callers with
 fewer frames are zero-padded up to ``spec.batch_size``, more raise.
 
-Precisions: fp32, and bf16 ('fp16'/'half' are aliases of bf16, as in the
-JAX package). In bf16 only the parameters are cast; BatchNorm running
-statistics stay fp32. An fp32 engine turns TF32 off for cuDNN and cuBLAS,
-which would otherwise keep about three digits. int8 engines are a later
-slice and raise ``NotImplementedError``. Not ported: ``mesh`` (multi-GPU)
-and ``exec_cache`` (serialized XLA executables).
+Precisions: fp32, bf16 ('fp16'/'half' are aliases of bf16, as in the
+JAX package) and int8. In bf16 only the parameters are cast; BatchNorm
+running statistics stay fp32. An fp32 engine turns TF32 off for cuDNN and
+cuBLAS, which would otherwise keep about three digits. int8 is the JAX
+package's QDQ engine (``quant/int8.py``): kernels QDQ'd per output channel
+on the JAX-layout tree, then cast to bf16; activations QDQ'd with the
+calibrated ``act_scales`` at every conv and dense input, inside the ACFF
+blocks by the bf16 kernel's QDQ mode. ``build_engine`` calibrates an int8
+engine on the frames it is given (``quant/calibrate.py``). Not ported:
+``mesh`` (multi-GPU) and ``exec_cache`` (serialized XLA executables).
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ from rtdm_tpu_torch.models.ernet import create_model, input_size_for
 from rtdm_tpu_torch.models.io import (flatten_tree, infer_num_classes,
                                       load_variables,
                                       torch_state_dict_from_variables)
+from rtdm_tpu_torch.quant.calibrate import calibrate_classifier
+from rtdm_tpu_torch.quant.int8 import quantize_classifier, quantize_params
 
 
 @dataclasses.dataclass
@@ -58,12 +64,11 @@ class Engine:
                  act_scales: Optional[Dict[str, np.ndarray]] = None,
                  device="cuda"):
         quant = spec.normalized_quant()
-        if quant == "int8":
-            raise NotImplementedError(
-                "int8 engines are not ported yet: they wait for the int8 "
-                "slice (quant/int8.py QDQ and calibration)")
         if quant not in ENGINE_DTYPES:
             raise ValueError(f"unknown engine precision {spec.quant!r}")
+        if quant == "int8" and not act_scales:
+            raise ValueError("an int8 engine needs act_scales (calibrate "
+                             "with build_engine(..., calib_images=...))")
         self.spec = spec
         self.variables = variables
         self.act_scales = act_scales
@@ -72,17 +77,12 @@ class Engine:
         if quant == "fp32":
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-
-        model = create_model(spec.model, device=self.device,
-                             num_classes=spec.num_classes,
-                             image_size=spec.image_size)
-        state = {k: v.to(self.device) for k, v in
-                 torch_state_dict_from_variables(variables).items()}
-        params = {name for name, _ in model.named_parameters()}
-        state.update(cast_floating({k: state[k] for k in params
-                                    if k in state}, self.dtype))
-        model.load_state_dict(state, strict=True, assign=True)
-        self.model = model.eval()
+        if quant == "int8":
+            variables = {**variables,
+                         "params": quantize_params(variables["params"])}
+        self.model = load_model(spec, variables, self.device, self.dtype)
+        if quant == "int8":
+            quantize_classifier(self.model, act_scales)
         self._mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
         self._std = torch.as_tensor(IMAGENET_STD, device=self.device)
 
@@ -131,20 +131,51 @@ class Engine:
         return cls(spec, variables, act_scales, device=device)
 
 
+def load_model(spec: EngineSpec, variables: Dict[str, Any], device,
+               dtype: torch.dtype) -> torch.nn.Module:
+    """The spec's classifier on ``device`` in eval mode, with the tree's
+    weights: parameters cast to ``dtype``, BatchNorm statistics as
+    stored."""
+    model = create_model(spec.model, device=device,
+                         num_classes=spec.num_classes,
+                         image_size=spec.image_size)
+    state = {k: v.to(device) for k, v in
+             torch_state_dict_from_variables(variables).items()}
+    params = {name for name, _ in model.named_parameters()}
+    state.update(cast_floating({k: state[k] for k in params if k in state},
+                               dtype))
+    model.load_state_dict(state, strict=True, assign=True)
+    return model.eval()
+
+
 def build_engine(model_name: str, variables: Dict[str, Any],
                  quant: str = "bf16", batch_size: int = 256,
+                 calib_images: Optional[np.ndarray] = None,
+                 calib_method: str = "percentile",
                  verify: bool = True, num_classes: Optional[int] = None,
                  device="cuda") -> Engine:
     """Build (and optionally verify) an engine from a variables tree.
 
-    ``num_classes`` defaults to what the checkpoint's head says. Verify runs
-    one zero frame and checks the output's shape and finiteness."""
+    For int8, ``calib_images`` (uint8 NHWC frames) calibrate the activation
+    scales by ``calib_method`` ('percentile' or 'entropy') on the fp32
+    model on ``device``. ``num_classes`` defaults to what the checkpoint's
+    head says. Verify runs one zero frame and checks the output's shape and
+    finiteness."""
     if num_classes is None:
         num_classes = infer_num_classes(variables) or 5
     image_size = input_size_for(model_name)
     spec = EngineSpec(model=model_name, quant=quant, batch_size=batch_size,
-                      image_size=image_size, num_classes=num_classes)
-    engine = Engine(spec, variables, device=device)
+                      image_size=image_size, num_classes=num_classes,
+                      calib_method=calib_method)
+    act_scales = None
+    if spec.normalized_quant() == "int8":
+        if calib_images is None:
+            raise ValueError("int8 engines need calib_images")
+        device = resolve_device(device)
+        act_scales = calibrate_classifier(
+            load_model(spec, variables, device, torch.float32),
+            calib_images, method=calib_method)
+    engine = Engine(spec, variables, act_scales, device=device)
     if verify:
         out = engine(np.zeros((1, image_size, image_size, 3), np.uint8))
         if out.shape != (1, num_classes) or not np.all(np.isfinite(out)):

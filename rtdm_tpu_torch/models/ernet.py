@@ -25,7 +25,8 @@ from rtdm_tpu_torch.core.device import resolve_device
 from rtdm_tpu_torch.models.acff import ACFF
 from rtdm_tpu_torch.models.io import infer_num_classes
 from rtdm_tpu_torch.models.layers import Conv, Dense
-from rtdm_tpu_torch.ops.convpool import avg_pool2d, max_pool2d
+from rtdm_tpu_torch.ops.convpool import (avg_pool2d, avg_pool2d_sequential,
+                                         max_pool2d)
 
 NUM_CLASSES = 5
 CLASS_NAMES = ("collapsed_building", "fire", "flooded_areas", "normal",
@@ -52,19 +53,34 @@ class _ErnetHead(nn.Module):
         self.conv2 = Conv(in_channels, num_classes, kernel_size=1,
                           use_bias=False)
         self.fc = Dense(num_classes * pooled * pooled, num_classes)
+        # the int8 engine pools as the compiled JAX int8 engine rounds
+        # (ops/convpool.py::avg_pool2d_sequential)
+        self.sequential_pool = False
 
     def forward(self, x: torch.Tensor,
                 apply_softmax: bool = True) -> torch.Tensor:
         x = self.conv2(x)
-        x = avg_pool2d(x, 5, 1, self.pool_padding, count_include_pad=True)
+        if self.sequential_pool:
+            x = avg_pool2d_sequential(x, 5, self.pool_padding)
+        else:
+            x = avg_pool2d(x, 5, 1, self.pool_padding,
+                           count_include_pad=True)
         x = self.fc(_nchw_flatten(x))
         if apply_softmax:
             x = torch.softmax(x.float(), dim=-1)
         return x
 
 
+# Layers whose output the int8 engine leaves in fp32 (``Conv.round_output``):
+# those the next layer's QDQ reads straight from them, and the logits. The
+# compiled JAX int8 engine rounds them to bf16 nowhere (XLA drops a bf16
+# rounding that an fp32 read follows at once).
+_UNROUNDED = ("conv1", "head.fc")
+
+
 class SqueezeErNET(nn.Module):
     """Squeeze variant; input 140x140x3 NHWC."""
+    UNROUNDED_IN_INT8 = _UNROUNDED
 
     def __init__(self, image_size: int = 140, num_classes: int = NUM_CLASSES):
         super().__init__()
@@ -90,6 +106,7 @@ class SqueezeErNET(nn.Module):
 
 class SqueezeRedConv(nn.Module):
     """Variant with 1x1 reduction convs; input 140x140x3."""
+    UNROUNDED_IN_INT8 = _UNROUNDED + ("conv_red1", "conv_red3")
 
     def __init__(self, image_size: int = 140, num_classes: int = NUM_CLASSES):
         super().__init__()
@@ -118,6 +135,7 @@ class SqueezeRedConv(nn.Module):
 
 class ErNET(nn.Module):
     """EmergencyNet baseline; input 240x240x3."""
+    UNROUNDED_IN_INT8 = _UNROUNDED
 
     def __init__(self, image_size: int = 240, num_classes: int = NUM_CLASSES):
         super().__init__()

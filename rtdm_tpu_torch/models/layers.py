@@ -5,7 +5,15 @@ Counterpart of ``rtdm_tpu/models/layers.py``: ``Conv``, ``DepthwiseConv``,
 carry PyTorch's names and layouts (``weight`` OIHW or (O, I), ``bias``,
 ``running_mean``, ``running_var``), so a JAX variables tree maps onto them
 one leaf per tensor (``models/io.py``). Each layer computes in the dtype of
-its input, as the JAX layers cast their kernels to ``x.dtype``.
+its input, as the JAX layers cast their kernels to ``x.dtype``, and adds
+its bias after the product, in that dtype.
+
+``round_output = False`` (``Conv``, ``Dense``; set by the int8 engine on
+the layers its model names) leaves a bf16 layer's last step in fp32: the
+product of a layer without bias, or the bias sum after the product is
+rounded. XLA compiles the JAX int8 engine so: a bf16 result that the next
+step reads back in fp32 (the next layer's QDQ, the engine's fp32 logits)
+is not rounded to bf16 in between.
 """
 
 from __future__ import annotations
@@ -34,8 +42,10 @@ def _zeros(n: int, use: bool) -> Optional[nn.Parameter]:
     return nn.Parameter(torch.zeros(n)) if use else None
 
 
-def _cast(t: Optional[torch.Tensor], dtype) -> Optional[torch.Tensor]:
-    return None if t is None else t.to(dtype)
+def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """y + bias in y's dtype, after the product is rounded to it, as the JAX
+    layers add theirs (a bf16 layer rounds twice)."""
+    return y if bias is None else y + bias.to(y.dtype)
 
 
 class Conv(nn.Module):
@@ -51,10 +61,17 @@ class Conv(nn.Module):
         self.dilation, self.groups = dilation, groups
         self.weight = _he_normal(features, in_channels // groups, kh, kw)
         self.bias = _zeros(features, use_bias)
+        self.round_output = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d(x, self.weight.to(x.dtype), _cast(self.bias, x.dtype),
-                      self.stride, self.padding, self.dilation, self.groups)
+        w = self.weight.to(x.dtype)
+        if self.round_output or self.bias is not None:
+            y = conv2d(x, w, None, self.stride, self.padding, self.dilation,
+                       self.groups)
+            return _add_bias(y if self.round_output else y.float(),
+                             self.bias)
+        return conv2d(x.float(), w.float(), None, self.stride, self.padding,
+                      self.dilation, self.groups)
 
 
 class DepthwiseConv(nn.Module):
@@ -70,9 +87,9 @@ class DepthwiseConv(nn.Module):
         self.bias = _zeros(channels, use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return depthwise_conv2d(x, self.weight.to(x.dtype),
-                                _cast(self.bias, x.dtype), self.stride,
-                                self.padding, self.dilation)
+        return _add_bias(depthwise_conv2d(x, self.weight.to(x.dtype), None,
+                                          self.stride, self.padding,
+                                          self.dilation), self.bias)
 
 
 class BatchNorm(nn.Module):
@@ -109,7 +126,8 @@ class Dense(nn.Module):
         super().__init__()
         self.weight = _he_normal(features, in_features)
         self.bias = _zeros(features, use_bias)
+        self.round_output = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.nn.functional.linear(x, self.weight.to(x.dtype),
-                                          _cast(self.bias, x.dtype))
+        y = torch.nn.functional.linear(x, self.weight.to(x.dtype))
+        return _add_bias(y if self.round_output else y.float(), self.bias)

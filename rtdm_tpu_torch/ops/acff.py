@@ -25,7 +25,14 @@ both with the fuse product on tensor cores (``wgmma``):
   features are computed in fp32 and rounded to bf16 once, as the JAX bf16
   engine rounds each branch; the fuse product reads fuse_w rounded to bf16
   from ``pack_fuse_operand``'s layout; the epilogue is fp32 and the output
-  is rounded once.
+  is rounded once;
+- bf16 x with ``act_scales``: the bf16 kernel's int8 QDQ mode, the ACFF
+  block of the JAX int8 engine (``quant/int8.py``): x QDQ'd per branch, the
+  features rounded and QDQ'd, the epilogue rounded as that engine rounds
+  it (``depthwise_features``, ``acff_infer_plain``). QDQ multiplies by the
+  fp32 reciprocal of the scale, as XLA compiles the JAX engine's division
+  by a constant; the C entry takes the four scales and makes the
+  reciprocals.
 
 The host side of the kernels lives here, where the CPU tests reach it:
 ``tile_plan`` (which output pixels one thread block owns, both kernels),
@@ -40,19 +47,24 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-from typing import Mapping, Optional, Tuple
+import math
+from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from rtdm_tpu_torch.ops.kernels import CudaKernel
+from rtdm_tpu_torch.quant.int8 import fake_quant_tensor
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ACFF_KERNEL = CudaKernel("acff", "acff_infer_launch",
-                         [_P] * 8 + [_I] * 15 + [_P])
+                         [_P] * 8 + [_I] * 15 + [_F] * 4 + [_P])
 # Launches of each kernel behind ACFF_KERNEL, counted where the runtime
-# accepted them ("bf16": the bf16 kernel, "fp32": the 3xTF32 kernel).
-LAUNCHES = {"bf16": 0, "fp32": 0}
+# accepted them ("bf16": the bf16 kernel, "int8": its QDQ mode, "fp32":
+# the 3xTF32 kernel).
+LAUNCHES = {"bf16": 0, "int8": 0, "fp32": 0}
+# the C entry's mode argument
+MODES = {"fp32": 0, "bf16": 1, "int8": 2}
 
 Packed = Tuple[torch.Tensor, ...]
 
@@ -66,9 +78,46 @@ SMEM_LIMIT = 227 * 1024  # dynamic shared memory of one block on an H100
 WIDTHS = (64, 96, 128, 256)   # O of both kernels: two warpgroups of N = O/2
 
 
+def depthwise_features(x: torch.Tensor, dw_w: torch.Tensor,
+                       dw_b: torch.Tensor,
+                       act_scales: Optional[Sequence[float]] = None
+                       ) -> torch.Tensor:
+    """The three depthwise branches concatenated, (B, 3C, H-2, W-2) NCHW,
+    as the fuse product reads them: in fp32 (fp64 for a float64 x), and for
+    a bf16 x rounded to bf16.
+
+    With ``act_scales`` = (s_x1, s_x2, s_x3, s_f), x bf16, the int8 QDQ
+    engine's rounding steps, in the JAX int8 engine's order: branch d reads
+    bf16(QDQ(x, s_xd)); its sum without the bias is rounded to bf16, then
+    the bias rounded to bf16 is added and the sum rounded again (a JAX bf16
+    ``DepthwiseConv``); the concat is QDQ'd with s_f in fp32 and rounded to
+    bf16."""
+    c = x.shape[-1]
+    ct = torch.float64 if x.dtype == torch.float64 else torch.float32
+    xf = x.to(ct).permute(0, 3, 1, 2)
+
+    def branch(d, inp, bias):
+        return F.conv2d(inp, dw_w[d].to(ct).permute(2, 0, 1).unsqueeze(1),
+                        bias, padding=d, dilation=d + 1, groups=c)
+    if act_scales is None:
+        feat = torch.cat([branch(d, xf, dw_b[d].to(ct)) for d in range(3)],
+                         1)
+        return feat.to(x.dtype).float() if x.dtype == torch.bfloat16 \
+            else feat
+
+    def bf16(t):
+        return t.to(torch.bfloat16).float()
+    feats = []
+    for d in range(3):
+        y = bf16(branch(d, bf16(fake_quant_tensor(xf, act_scales[d])), None))
+        feats.append(bf16(y + bf16(dw_b[d].float())[:, None, None]))
+    return bf16(fake_quant_tensor(torch.cat(feats, 1), act_scales[3]))
+
+
 def acff_infer_plain(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
                      fuse_w: torch.Tensor, fuse_b: torch.Tensor,
-                     scale: torch.Tensor, shift: torch.Tensor
+                     scale: torch.Tensor, shift: torch.Tensor,
+                     act_scales: Optional[Sequence[float]] = None
                      ) -> torch.Tensor:
     """The kernel's function in PyTorch ops, computed in fp32 (in fp64
     for a float64 x, the reference the fp32 kernel is held to).
@@ -76,18 +125,23 @@ def acff_infer_plain(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
     x: (B,H,W,C); dw_w: (3,3,3,C) [branch, kh, kw, C]; dw_b: (3,C);
     fuse_w: (3C,O); fuse_b/scale/shift: (O,). Returns (B,H-2,W-2,O) in
     x's dtype. For a bf16 x the concatenated features and fuse_w are
-    rounded to bf16 before the fuse product, as the bf16 kernel does."""
-    c = x.shape[-1]
+    rounded to bf16 before the fuse product, as the bf16 kernel does.
+    ``act_scales`` (bf16 x only) makes it the int8 QDQ block, as
+    ``depthwise_features`` computes its features; fuse_w is taken as
+    stored (an int8 engine's is QDQ'd and rounded to bf16 already)."""
     ct = torch.float64 if x.dtype == torch.float64 else torch.float32
-    xf = x.to(ct).permute(0, 3, 1, 2)
-    branches = [F.conv2d(xf, dw_w[d].to(ct).permute(2, 0, 1).unsqueeze(1),
-                         dw_b[d].to(ct), padding=d, dilation=d + 1, groups=c)
-                for d in range(3)]
-    feat, w = torch.cat(branches, 1), fuse_w.to(ct)
+    feat, w = depthwise_features(x, dw_w, dw_b, act_scales), fuse_w.to(ct)
     if x.dtype == torch.bfloat16:
-        feat, w = feat.to(x.dtype).float(), w.to(x.dtype).float()
-    y = F.conv2d(feat, w.t()[:, :, None, None], fuse_b.to(ct))
-    y = F.leaky_relu(y, 0.01)
+        w = w.to(x.dtype).float()
+    if act_scales is None:
+        y = F.leaky_relu(F.conv2d(feat, w.t()[:, :, None, None],
+                                  fuse_b.to(ct)), 0.01)
+    else:
+        def bf16(t):
+            return t.to(torch.bfloat16).float()
+        y = bf16(F.conv2d(feat, w.t()[:, :, None, None]))
+        y = bf16(y + bf16(fuse_b.float())[:, None, None])
+        y = torch.where(y >= 0, y, bf16(y * bf16(torch.tensor(0.01))))
     y = y * scale.to(ct)[:, None, None] + shift.to(ct)[:, None, None]
     return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
@@ -279,10 +333,27 @@ def fp32_smem_bytes(c: int, o: int, plan: TilePlan) -> int:
     return up(a + 2 * 8 * (3 * kc // 4) * FP32_A_LBO) + 24 * kc * o + 128
 
 
-def _check(x: torch.Tensor, dw_w, dw_b, fuse_w, fuse_b, scale, shift) -> None:
+def _check_act_scales(x: torch.Tensor,
+                      act_scales: Optional[Sequence[float]]) -> None:
+    """Raises unless ``act_scales`` is None or four finite scales > 0
+    for a bf16 x."""
+    if act_scales is None:
+        return
+    if x.dtype != torch.bfloat16:
+        raise ValueError(f"act_scales (int8 QDQ) need a bfloat16 x, got "
+                         f"{x.dtype}")
+    if len(act_scales) != 4 or not all(
+            math.isfinite(s) and s > 0 for s in map(float, act_scales)):
+        raise ValueError(f"act_scales must be 4 finite scales > 0 "
+                         f"(s_x1, s_x2, s_x3, s_f), got {act_scales!r}")
+
+
+def _check(x: torch.Tensor, dw_w, dw_b, fuse_w, fuse_b, scale, shift,
+           act_scales: Optional[Sequence[float]] = None) -> None:
     if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"x must be (B,H,W,C) float32 or bfloat16, got "
                          f"{tuple(x.shape)} {x.dtype}")
+    _check_act_scales(x, act_scales)
     b, h, w, c = x.shape
     o = fuse_w.shape[-1]
     if h < 3 or w < 3 or not 1 <= b <= 65535:
@@ -339,33 +410,39 @@ def _check_operand(x: torch.Tensor, fuse_operand: Optional[torch.Tensor],
 def acff_infer(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
                fuse_w: torch.Tensor, fuse_b: torch.Tensor, scale: torch.Tensor,
                shift: torch.Tensor,
-               fuse_operand: Optional[torch.Tensor] = None) -> torch.Tensor:
+               fuse_operand: Optional[torch.Tensor] = None,
+               act_scales: Optional[Sequence[float]] = None) -> torch.Tensor:
     """Fused ACFF block; arguments as ``acff_infer_plain``, weights fp32.
 
     ``fuse_operand`` is fuse_w packed for the kernel of x's dtype, which
     reads it in place of fuse_w: ``pack_fuse_operand(fuse_w)`` for bf16,
     ``pack_fuse_operand_tf32(fuse_w)`` for fp32; required on CUDA, not read
-    on the CPU. A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel on the current stream, and a failed build or launch
-    raises."""
+    on the CPU. ``act_scales`` (s_x1, s_x2, s_x3, s_f), with a bf16 x,
+    runs the bf16 kernel's int8 QDQ mode. A CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel on the current stream, and a
+    failed build or launch raises."""
     if x.device.type == "cpu":
-        return acff_infer_plain(x, dw_w, dw_b, fuse_w, fuse_b, scale, shift)
+        _check_act_scales(x, act_scales)
+        return acff_infer_plain(x, dw_w, dw_b, fuse_w, fuse_b, scale, shift,
+                                act_scales)
     if x.device.type != "cuda":
         raise ValueError(f"no ACFF kernel for device {x.device}")
-    _check(x, dw_w, dw_b, fuse_w, fuse_b, scale, shift)
+    _check(x, dw_w, dw_b, fuse_w, fuse_b, scale, shift, act_scales)
     b, h, w, c = x.shape
     o = fuse_w.shape[-1]
     _check_operand(x, fuse_operand, c, o)
-    bf16 = x.dtype == torch.bfloat16
+    quant = ("fp32" if x.dtype == torch.float32
+             else "bf16" if act_scales is None else "int8")
+    qs = [0.0] * 4 if act_scales is None else [float(v) for v in act_scales]
     out = torch.empty((b, h - 2, w - 2, o), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         ACFF_KERNEL.launch(
             x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(),
             fuse_operand.data_ptr(), fuse_b.data_ptr(), scale.data_ptr(),
-            shift.data_ptr(), out.data_ptr(), b, h, w, c, o, int(bf16),
-            *tile_plan(b, h, w).scalars(), stream)
-    LAUNCHES["bf16" if bf16 else "fp32"] += 1
+            shift.data_ptr(), out.data_ptr(), b, h, w, c, o, MODES[quant],
+            *tile_plan(b, h, w).scalars(), *qs, stream)
+    LAUNCHES[quant] += 1
     return out
 
 

@@ -11,6 +11,8 @@ Weights are in PyTorch's own OIHW layout.
 - MaxPool2d(k, s) rounds down (ceil_mode=False).
 - AvgPool2d(k, s, p) with count_include_pad=True divides every window by
   k*k, also where it overlaps the padding (AvgPool2d(5,1,1) on 4x4 -> 2x2).
+  ``avg_pool2d_sequential`` is the same pool rounded as the compiled JAX
+  engine rounds a bf16 one.
 """
 
 from __future__ import annotations
@@ -64,3 +66,22 @@ def avg_pool2d(x: torch.Tensor, kernel: _PairT,
     return _nhwc(F.avg_pool2d(_nchw(x), kernel,
                               stride if stride is not None else kernel,
                               padding, count_include_pad=count_include_pad))
+
+
+def avg_pool2d_sequential(x: torch.Tensor, kernel: int,
+                          padding: int = 0) -> torch.Tensor:
+    """``avg_pool2d(x, kernel, 1, padding, count_include_pad=True)``
+    rounded as XLA:CPU compiles the JAX package's bf16 pool: the window's
+    k*k values are summed one by one in row-major order, each partial sum
+    rounded to x's dtype, and the sum is multiplied by the fp32 reciprocal
+    of k*k and rounded once more. One add a window position: k*k small
+    launches on the card."""
+    xp = F.pad(x, (0, 0, padding, padding, padding, padding))
+    oh, ow = xp.shape[1] - kernel + 1, xp.shape[2] - kernel + 1
+    acc = torch.zeros((x.shape[0], oh, ow, x.shape[3]), dtype=x.dtype,
+                      device=x.device)
+    for i in range(kernel):
+        for j in range(kernel):
+            acc = acc + xp[:, i:i + oh, j:j + ow]
+    inv = torch.tensor(1.0 / (kernel * kernel), dtype=torch.float32)
+    return (acc.float() * inv).to(x.dtype)

@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with an H100:
 
-    python3 scripts/acff_phase_times.py [--quant bf16|fp32]
+    python3 scripts/acff_phase_times.py [--quant bf16|int8|fp32]
 
 ``ncu`` is not available everywhere the kernel is measured, so this times
 variants of ``rtdm_tpu_torch/csrc/acff.cu`` with one phase removed each,
@@ -11,7 +11,10 @@ at the four Squeeze_ErNET ACFF shapes and Squeeze_RedConv's acff1 (C=8)
 at batch 256: ``no_dw`` (no depthwise features), ``no_mma`` (no wgmma),
 ``no_epi`` (no epilogue into the staging tile), ``no_store`` (no output
 stores) and ``skeleton`` (all four removed: box loads, barriers and loops
-only). A variant computes garbage; only its time means anything, and the
+only). ``--quant int8`` runs the same cuts on the bf16 kernel's int8 QDQ
+mode, with act_scales that spread the codes over +-127 as
+``chip_smoke.kernel_inputs`` makes them. A variant computes garbage; only
+its time means anything, and the
 time a phase saves when removed is an upper bound on what it costs in the
 whole kernel (the phases overlap across resident blocks). The fp32 kernel
 (``--quant fp32``) has no ``no_epi`` (its epilogue stores from the
@@ -52,8 +55,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (ENGINES, FP64_REL_TOL, GOLDEN, MODELS,  # noqa: E402
-                        acff_inputs, card_line, graph_ms,
+from chip_smoke import (DTYPES, ENGINES, FP64_REL_TOL, GOLDEN,  # noqa: E402
+                        MODELS, acff_inputs, card_line, graph_ms,
                         real_input_errors)
 from rtdm_tpu_torch.ops import acff as ops, kernels  # noqa: E402
 
@@ -63,9 +66,10 @@ SHAPES = [(16, 64, 69), (8, 64, 69), (64, 96, 33), (96, 128, 15),
 BATCH = 256
 CUTS = {
     "no_dw": [(
-        "      if (C >= 48) dw_rows<8>(box, wts, a_s, C, kp8, tid);\n"
-        "      else if (C >= 16) dw_rows<4>(box, wts, a_s, C, kp8, tid);\n"
-        "      else dw_rows<2>(box, wts, a_s, C, kp8, tid);\n", "")],
+        "      if (C >= 48) dw_rows<8, Q>(box, wts, a_s, C, kp8, tid, qd);\n"
+        "      else if (C >= 16) dw_rows<4, Q>(box, wts, a_s, C, kp8, tid, "
+        "qd);\n"
+        "      else dw_rows<2, Q>(box, wts, a_s, C, kp8, tid, qd);\n", "")],
     "no_mma": [("for (int s = 0; s < kc / 16; ++s)",
                 "for (int s = 0; s < 0; ++s)")],
     "no_epi": [(
@@ -218,16 +222,17 @@ def real_inputs(fns: dict) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--quant", choices=("bf16", "fp32"), default="bf16")
+    ap.add_argument("--quant", choices=("bf16", "int8", "fp32"),
+                    default="bf16")
     quant = ap.parse_args().quant
     if not torch.cuda.is_available():
         print("CUDA is not available", file=sys.stderr)
         return 2
-    bf16 = quant == "bf16"
+    bf16 = quant != "fp32"
     fns = build_all(variant_sources(CUTS if bf16 else CUTS_FP32))
     rng = np.random.default_rng(0)
     card = card_line()
-    dtype = torch.bfloat16 if bf16 else torch.float32
+    dtype = DTYPES[quant]
     result = {"card": card, "quant": quant, "batch": BATCH, "ms": {}}
     for c, o, h in SHAPES:
         host = [rng.standard_normal((BATCH, h, h, c), dtype=np.float32),
@@ -240,6 +245,11 @@ def main() -> int:
         fuse_op = (ops.pack_fuse_operand(a[3]) if bf16
                    else ops.pack_fuse_operand_tf32(a[3]))
         plan = ops.tile_plan(BATCH, h, h)
+        qs = [0.0] * 4
+        if quant == "int8":
+            s_x = a[0].float().abs().max().item() / 127
+            feat = ops.depthwise_features(*a[:3])
+            qs = [s_x] * 3 + [feat.abs().max().item() / 127]
         out = torch.empty((BATCH, h - 2, h - 2, o), dtype=dtype,
                           device="cuda")
         times, errors = {}, {}
@@ -249,7 +259,7 @@ def main() -> int:
                 rc = fn(a[0].data_ptr(), a[1].data_ptr(), a[2].data_ptr(),
                         fuse_op.data_ptr(), a[4].data_ptr(), a[5].data_ptr(),
                         a[6].data_ptr(), out.data_ptr(), BATCH, h, h, c, o,
-                        int(bf16), *plan.scalars(),
+                        ops.MODES[quant], *plan.scalars(), *qs,
                         torch.cuda.current_stream().cuda_stream)
                 if rc:
                     raise RuntimeError(f"launch failed: CUDA error {rc}")

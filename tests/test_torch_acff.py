@@ -222,6 +222,121 @@ def test_training_mode_is_not_ported():
         ACFF(8, 32).train()(torch.zeros(1, 6, 6, 8))
 
 
+# (C, O, H=W) of the four Squeeze_ErNET blocks
+SQUEEZE_ERNET = [(16, 64, 69), (64, 96, 33), (96, 128, 15), (128, 256, 6)]
+
+
+@pytest.mark.parametrize("c,o,hw", SQUEEZE_ERNET)
+def test_int8_plain_matches_jax_qdq_block(jax_ref, rng, c, o, hw):
+    """``acff_infer_plain(..., act_scales)`` against a flax ``ACFF`` block
+    run as the JAX int8 engine runs it: kernels QDQ'd per channel and cast
+    to bf16, each Conv/DepthwiseConv input QDQ'd in fp32 by an interceptor
+    written like ``rtdm_tpu/quant/int8.py``, compiled by ``jax.jit``. Held
+    to one bf16 step of max |out| (2^-8; both fold BN differently, a last
+    fp32 bit that can round the output the other way) with at most 0.1% of
+    the outputs different; measured: 0 to a few in 10^5."""
+    from flax import linen as nn
+
+    from rtdm_tpu.core.precision import _cast_floating
+    from rtdm_tpu.models.layers import Conv, DepthwiseConv
+    from rtdm_tpu.quant.int8 import fake_quant_tensor, quantize_params
+    from rtdm_tpu_torch.core.precision import cast_floating
+    jnp = jax_ref.jnp
+    x, variables, jmod = _jax_case(jax_ref, rng, c, o, hw)
+    xb = np.array(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+    qparams = quantize_params(variables["params"])
+    feats = ops.depthwise_features(torch.from_numpy(xb).bfloat16(),
+                                   *_port_module(
+                                       {**variables, "params": qparams},
+                                       c, o).packed()[:2])
+    # scales as calibration makes them: one for the three branches
+    s_x = float(np.float32(np.abs(xb).max() / 127))
+    scales = {"conv1": s_x, "conv2": s_x, "conv3": s_x,
+              "fused_conv": float(np.float32(
+                  feats.abs().max().item() / 127))}
+
+    def interceptor(next_fun, args, kwargs, context):
+        if (isinstance(context.module, (Conv, DepthwiseConv))
+                and context.method_name == "__call__"):
+            s = scales[context.module.name]
+            x0 = args[0]
+            args = (fake_quant_tensor(x0.astype(jnp.float32), s)
+                    .astype(x0.dtype),) + args[1:]
+        return next_fun(*args, **kwargs)
+    qv = {"params": _cast_floating(qparams, jnp.bfloat16),
+          "batch_stats": variables["batch_stats"]}
+
+    def run(v):
+        with nn.intercept_methods(interceptor):
+            return jmod.apply(qv, v, train=False).astype(jnp.float32)
+    want = np.asarray(jax_ref.jax.jit(run)(
+        jnp.asarray(xb).astype(jnp.bfloat16)))
+    mod = _port_module({**variables, "params": qparams}, c, o)
+    state = mod.state_dict()
+    state.update(cast_floating({k: state[k] for k, _ in
+                                mod.named_parameters()}, torch.bfloat16))
+    mod.load_state_dict(state, strict=True, assign=True)
+    mod.act_scales = tuple(scales[k] for k in
+                           ("conv1", "conv2", "conv3", "fused_conv"))
+    with torch.inference_mode():
+        got = mod(torch.from_numpy(xb).bfloat16()).float().numpy()
+    assert got.shape == want.shape == (2, hw - 2, hw - 2, o)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=2.0 ** -8 * np.abs(want).max())
+    assert (got != want).mean() <= 1e-3
+
+
+def test_int8_plain_rounds_as_the_kernel_mode_does(rng):
+    """With scales a power of two and weights and x exact in bf16, the QDQ
+    plain version is the bf16 one on QDQ'd inputs: x on the 1/8 grid and
+    within +-127/8 is its own QDQ, and so is a feature on the fuse scale's
+    grid; and a scale too small for x clips it to +-127 codes."""
+    x, *w = _kernel_args(rng, 2, 8, 64, 9, torch.float32, "cpu")
+    x = (torch.round(x * 32) / 8).clamp(-15, 15).bfloat16()
+    w[0] = torch.zeros_like(w[0])
+    w[0][:, 1, 1] = 1.0                  # each branch passes x through
+    w[1] = torch.zeros_like(w[1])
+    feats = ops.depthwise_features(x, w[0], w[1], (0.125,) * 4)
+    assert torch.equal(feats, x.float().permute(0, 3, 1, 2)[
+        :, :, 1:-1, 1:-1].repeat(1, 3, 1, 1))
+    # a QDQ that saturates: x / s beyond 127 clips
+    feats = ops.depthwise_features(x, w[0], w[1], (0.0625,) * 4)
+    assert feats.abs().max().item() == 127 * 0.0625
+
+
+def test_layer_by_layer_matches_the_fused_block(jax_ref, rng):
+    """``forward_layers`` (the calibration forward: conv1/2/3 -> concat ->
+    fused_conv -> LeakyReLU -> batch_norm) equals the fused plain block in
+    fp32, within 1e-5 of max |out| (sums in another order)."""
+    from rtdm_tpu_torch.models.acff import layer_by_layer
+    for c, o, hw in SHAPES:
+        x, variables, _ = _jax_case(jax_ref, rng, c, o, hw)
+        mod = _port_module(variables, c, o)
+        xt = torch.from_numpy(x)
+        with torch.inference_mode():
+            fused = mod(xt)
+            with layer_by_layer(mod):
+                layers = mod(xt)
+        assert not mod.unfused
+        np.testing.assert_allclose(layers.numpy(), fused.numpy(), rtol=0,
+                                   atol=1e-5 * fused.abs().max().item())
+
+
+@pytest.mark.parametrize("bad", [(0.1, 0.1, 0.1), (0.1, 0.1, 0.0, 0.1),
+                                 (0.1, float("nan"), 0.1, 0.1),
+                                 (0.1, 0.1, float("inf"), 0.1),
+                                 (-0.1, 0.1, 0.1, 0.1), "fp32_x"])
+def test_act_scales_checks(rng, bad):
+    x, *w = _kernel_args(rng, 2, 8, 64, 6, torch.bfloat16, "cpu")
+    ops._check(x, *w, act_scales=(0.1, 0.1, 0.1, 0.1))
+    if bad == "fp32_x":
+        x, bad = x.float(), (0.1, 0.1, 0.1, 0.1)
+    with pytest.raises(ValueError, match="act_scales"):
+        ops._check(x, *w, act_scales=bad)
+    with pytest.raises(ValueError, match="act_scales"):
+        ops.acff_infer(x, *w, act_scales=bad)
+
+
 def _kernel_args(rng, b, c, o, hw, dtype, device):
     x = torch.from_numpy(rng.normal(size=(b, hw, hw, c)).astype(np.float32))
     args = [rng.normal(size=(3, 3, 3, c)) * 0.3, rng.normal(size=(3, c)),
@@ -488,3 +603,44 @@ def test_cuda_kernel_matches_plain():
                 assert got.dtype == dtype and got.shape == want.shape
                 torch.testing.assert_close(got.float(), want.float(),
                                            rtol=tol[0], atol=tol[1])
+
+
+def _qdq_scales(x, dw_w, dw_b, spread=(1.0, 1.3, 0.7)):
+    """Scales that spread the int8 codes over +-127: s_xd = max|x| / 127
+    (times a factor a branch, so that the branches' scales differ) and s_f
+    from the bf16 features of the plain version."""
+    top = x.float().abs().max().item()
+    feat = ops.depthwise_features(x, dw_w, dw_b)
+    return tuple(top * f / 127 for f in spread) + (
+        feat.abs().max().item() / 127,)
+
+
+@pytest.mark.cuda
+def test_cuda_qdq_mode_matches_plain():
+    """The bf16 kernel's int8 QDQ mode against acff_infer_plain with the
+    same act_scales, at batch 1, 3 and 5: spatial tiles (C=16, 96) and
+    packed whole images (C=64 and 128 at 6x6). Held at bf16's 2e-2: both
+    round the features and the output to bf16, and the fuse product's
+    sum, rounded to bf16 before the bias, can round the other way in
+    another summation order; a feature that moves by one bf16 step moves
+    by at most one int8 code."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(1)
+    for c, o, hw in [(16, 64, 11), (96, 128, 15), (64, 256, 6),
+                     (128, 256, 6)]:
+        for b in (1, 3, 5):
+            args = _kernel_args(rng, b, c, o, hw, torch.bfloat16, "cuda")
+            qs = _qdq_scales(args[0], args[1], args[2])
+            before = dict(ops.LAUNCHES)
+            got = ops.acff_infer(*args, ops.pack_fuse_operand(args[3]),
+                                 act_scales=qs)
+            torch.cuda.synchronize()
+            assert ops.LAUNCHES["int8"] == before["int8"] + 1
+            assert ops.LAUNCHES["bf16"] == before["bf16"]
+            want = ops.acff_infer_plain(*args, act_scales=qs)
+            assert got.dtype == torch.bfloat16 and got.shape == want.shape
+            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                       atol=2e-2)

@@ -1,4 +1,5 @@
-"""The port's ``aider_predict`` CLI picks the same class as the JAX CLI."""
+"""The port's ``aider_predict`` CLI picks the same class as the JAX CLI, at
+fp32, bf16 and int8."""
 
 import pytest
 
@@ -37,3 +38,29 @@ def test_quant_must_match_engine():
     with pytest.raises(SystemExit):
         port_cli.main(["--image", IMAGES[0], "--engine", ENGINE,
                        "--quant", "fp32", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("image", IMAGES)
+def test_int8_weights_path_matches_jax_cli(image):
+    """--weights --quant int8 calibrates on the image repeated 8 times in
+    both CLIs and picks the same class."""
+    args = ["--image", image, "--weights", f"{ENGINE}/params.npz",
+            "--model", "squeeze-ernet", "--quant", "int8"]
+    want = jax_cli.main(args)
+    assert port_cli.main([*args, "--device", "cpu"]) == want
+
+
+def test_int8_engine_dir_predicts_the_jax_golden_class():
+    """--engine on a committed int8 directory picks the class of the JAX
+    int8 engine's logits for that image (the int8 golden)."""
+    import numpy as np
+
+    from tests.torch_port_goldens import GOLDEN_INT8
+    with np.load(GOLDEN_INT8) as g:
+        names, logits = list(g["names"]), g["squeeze-ernet"]
+    for image in IMAGES:
+        want = int(logits[names.index(image.split("/")[-1])].argmax())
+        got = port_cli.main(["--image", image, "--engine",
+                             "artifacts/engines/squeeze-ernet_int8",
+                             "--quant", "int8", "--device", "cpu"])
+        assert got == want

@@ -33,7 +33,11 @@ def test_no_jax_or_reference_imports(path):
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, rtdm_tpu_torch.export.engine, "
-            "rtdm_tpu_torch.cli.aider_predict, rtdm_tpu_torch.models; "
+            "rtdm_tpu_torch.cli.aider_predict, rtdm_tpu_torch.models, "
+            "rtdm_tpu_torch.cli.build_engine, "
+            "rtdm_tpu_torch.cli.evaluate_classification, "
+            "rtdm_tpu_torch.quant.calibrate, rtdm_tpu_torch.quant.int8, "
+            "rtdm_tpu_torch.eval.classification; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

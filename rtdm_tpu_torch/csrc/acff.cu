@@ -44,22 +44,41 @@
 //   work. This design took 0.233, 0.107, 0.056 and 0.021 ms at the four
 //   Squeeze_ErNET blocks (chip_smoke.py, same card): the depthwise pass,
 //   bound by shared-memory loads, is the largest phase.
-// - int8 QDQ mode (acff_bf16_kernel<NH, true>, the ACFF block of the int8
-//   engine; the JAX int8 engine runs the unfused flax block under QDQ
-//   interception): the same tile, product and stores, with the rounding
-//   steps of that engine where the features are staged. Each box column
-//   is QDQ'd with its branch's scale where dw_row/dw_pixel load it, the
-//   sums start at 0, and each feature goes to A as QDQ(bf16(bf16(sum) +
-//   bf16(bias))); the epilogue rounds the product, the bias sum and
-//   LeakyReLU to bf16 before BN. QDQ adds no bytes, so the bound is the
-//   bf16 one; it adds ALU work to the depthwise, whose loads of a box
-//   element are each QDQ'd again (9 times over the three rows and
-//   branches), and registers (217 at O = 96-256: one block per SM at
-//   acff2, two in bf16). It took 2.7x, 3.3x, 2.6x and 1.7x the bf16 time
-//   at the four Squeeze_ErNET blocks (chip_smoke.py, same card), the
-//   depthwise 72-79% of it at acff1-3 (scripts/acff_phase_times.py
-//   --quant int8). Calibration gives the three branches one scale: QDQ of
-//   the box once where it lands is the next step.
+// - int8 QDQ mode (the ACFF block of the int8 engine; the JAX int8 engine
+//   runs the unfused flax block under QDQ interception): the same tile,
+//   product and stores, with the rounding steps of that engine where the
+//   features are staged: branch d reads bf16(QDQ(x, s_xd)), the sums start
+//   at 0, each feature goes to A as QDQ(bf16(bf16(sum) + bf16(bias)), s_f),
+//   and the epilogue rounds the product, the bias sum and LeakyReLU to
+//   bf16 before BN. QDQ adds no bytes, so the bound is the bf16 one. Two
+//   variants (QMode):
+//   * QSHARED, s_x1 == s_x2 == s_x3 (calibration gives the three branches,
+//     which read one x, one scale: every committed int8 engine): once TMA
+//     has landed a box, the block rewrites it in place as bf16(QDQ(v,
+//     s_x)), 16 bytes a thread (the next tile's box while this tile's
+//     product runs on the tensor cores), and the depthwise then runs the
+//     bf16 kernel's loads on it. Each box element is QDQ'd once, where a
+//     QDQ at every load does it 9 times on a spatial tile and 27 on whole
+//     images. QDQ(0) = 0, so the zero fill stays the padding; the stores
+//     are generic ones like the epilogue's staging in the same buffer,
+//     which the fence before the next TMA load already orders. The result
+//     is bit for bit the per-branch variant's at equal scales
+//     (chip_smoke.py holds them equal at every shape and batch).
+//   * QBRANCH, unequal scales: each box column is QDQ'd with its branch's
+//     scale where dw_row/dw_pixel load it.
+//   Both round the features and the epilogue in bf16x2 pairs (add, mul
+//   and max on bf16x2, each rounded once: the same values as fp32 steps
+//   rounded to bf16) and round a QDQ's code by adding and subtracting 1.5
+//   * 2^23, which cut their instructions and registers (96 at O = 96 and
+//   128, 147-150 at O = 256). The per-load design with the roundings one
+//   value at a time took 217 registers at O = 96-256 (one block per SM at
+//   acff2) and 2.7x, 3.3x, 2.6x and 1.7x the bf16 time at the four
+//   Squeeze_ErNET blocks, 1.173 ms in all at batch 256; the shared-box
+//   variant takes 0.321, 0.153, 0.080 and 0.024 ms there, 0.578 ms in
+//   all, 1.39, 1.40, 1.43 and 1.10x the bf16 time, and the per-branch one
+//   0.937 ms (chip_smoke.py, H100 80GB HBM3 at 700 W). The rest of the gap to the
+//   bf16 kernel is ALU work: the pass over the box and the features' QDQ
+//   (scripts/acff_phase_times.py --quant int8).
 //
 // fp32 kernel (acff_fp32_kernel<O/2>), full fp32 accuracy: the fp32
 // engine turns TF32 off, so the fuse product runs as 3xTF32. Bound: at
@@ -343,11 +362,19 @@ __device__ __forceinline__ float2 bf16x2_to_float2(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 
-// ---------------------------------------------------- int8 QDQ mode (Q)
+// ------------------------------------------------------- int8 QDQ mode
+// The bf16 kernel's variants: plain bf16, and the int8 QDQ mode with the
+// box QDQ'd once for the three branches (one scale) or at each load with
+// each branch's scale. The C entry's modes are these plus one.
+enum QMode : int { QNONE = 0, QSHARED = 1, QBRANCH = 2 };
+
 // The int8 engine's activation QDQ, as XLA compiles the JAX int8 engine:
 // q = clamp(rint(v * inv), -127, 127), value q * s, with inv the fp32
 // reciprocal of s (XLA turns the division by a constant scale into that
-// multiply) and rint rounding half to even, like jnp.round.
+// multiply) and rint rounding half to even, like jnp.round. The kernel
+// clamps first and rounds the clamped value by adding and subtracting
+// 1.5 * 2^23 (two adds at the full FP32 rate, where FRND is slower): the
+// same q, since the bounds are integers.
 struct Qdq {
   float s[4], inv[4];   // the three depthwise inputs, then the fuse input
 };
@@ -357,31 +384,68 @@ __device__ __forceinline__ float bf16r(float v) {
 }
 
 __device__ __forceinline__ float qdq(float v, float s, float inv) {
-  return fminf(fmaxf(rintf(__fmul_rn(v, inv)), -127.f), 127.f) * s;
+  constexpr float RINT = 12582912.f;   // 1.5 * 2^23: its ulp is 1
+  const float t = fminf(fmaxf(__fmul_rn(v, inv), -127.f), 127.f);
+  return __fsub_rn(__fadd_rn(t, RINT), RINT) * s;
 }
 
-// x as branch D reads it in QDQ mode: bf16(QDQ(x, s_D)); QDQ(0) = 0, so
-// the TMA zero fill stays the padding.
-template <bool Q, int D>
+// bf16x2 arithmetic, each half rounded once to nearest even. On bf16
+// operands this is the fp32 operation rounded to bf16, as the JAX int8
+// engine and the plain version compute it: a sum or product of two bf16
+// values is exact in fp32, or (a sum whose exponents lie 17 or more
+// apart) rounds to the larger one either way.
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t mul_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t max_bf16x2(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("max.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// Two bf16 values, each as bf16(QDQ(v, s)).
+__device__ __forceinline__ uint32_t qdq_bf16x2(uint32_t v, float s,
+                                               float inv) {
+  const float2 f = bf16x2_to_float2(v);
+  return bf16x2(qdq(f.x, s, inv), qdq(f.y, s, inv));
+}
+
+// x as branch D reads it: in QBRANCH, bf16(QDQ(x, s_D)) (QDQ(0) = 0, so the
+// TMA zero fill stays the padding); in QSHARED the box holds that value
+// already.
+template <int QM, int D>
 __device__ __forceinline__ float2 x_in(float2 v, const Qdq& qd) {
-  if constexpr (Q) {
+  if constexpr (QM == QBRANCH) {
     v.x = bf16r(qdq(v.x, qd.s[D], qd.inv[D]));
     v.y = bf16r(qdq(v.y, qd.s[D], qd.inv[D]));
   }
   return v;
 }
 
-// A depthwise feature as the fuse product reads it, from its sum without
-// the bias in QDQ mode, as the JAX int8 engine rounds a bf16 depthwise
-// conv and its concat: bf16(bf16(sum) + bf16(bias)), QDQ'd with the fuse
-// input's scale (rounded to bf16 where A is written). Without Q the sum
-// already holds the bias.
-template <bool Q>
-__device__ __forceinline__ float feature(float sum, float bias,
-                                         const Qdq& qd) {
-  if constexpr (Q)
-    return qdq(bf16r(bf16r(sum) + bf16r(bias)), qd.s[3], qd.inv[3]);
-  return sum;
+// Two neighbouring depthwise features as A holds them (bf16x2), from their
+// sums without the bias in QDQ mode, as the JAX int8 engine rounds a bf16
+// depthwise conv and its concat: bf16(bf16(sum) + bf16(bias)), QDQ'd with
+// the fuse input's scale and rounded to bf16. In bf16 the sums already
+// hold the bias.
+template <int QM>
+__device__ __forceinline__ uint32_t features(float sum0, float sum1,
+                                             float bias0, float bias1,
+                                             const Qdq& qd) {
+  if constexpr (QM != QNONE) {
+    const float2 v =
+        bf16x2_to_float2(add_bf16x2(bf16x2(sum0, sum1), bf16x2(bias0, bias1)));
+    return bf16x2(qdq(v.x, qd.s[3], qd.inv[3]), qdq(v.y, qd.s[3], qd.inv[3]));
+  }
+  return bf16x2(sum0, sum1);
 }
 
 // Depthwise branch D of a spatial tile (8x8 pixels, 14x14 box from
@@ -391,7 +455,7 @@ __device__ __forceinline__ float feature(float sum, float bias,
 // loaded once each and feed every (px, kw) that reads them: SEG pixels x 4
 // channels of fp32 sums in registers; at SEG = 8, 1.5 bytes of
 // shared-memory loads per FMA.
-template <int D, int SEG, bool Q>
+template <int D, int SEG, int QM>
 __device__ __forceinline__ void dw_row(const __nv_bfloat16* box,
                                        const float* wts, unsigned char* a_s,
                                        int C, int q, int py, int px0,
@@ -400,7 +464,7 @@ __device__ __forceinline__ void dw_row(const __nv_bfloat16* box,
   float acc[SEG][4];
   const float4 bias = *reinterpret_cast<const float4*>(wts + 27 * C + D * C +
                                                        q * 4);
-  const float4 init = Q ? make_float4(0.f, 0.f, 0.f, 0.f) : bias;
+  const float4 init = QM != QNONE ? make_float4(0.f, 0.f, 0.f, 0.f) : bias;
 #pragma unroll
   for (int px = 0; px < SEG; ++px) {
     acc[px][0] = init.x; acc[px][1] = init.y;
@@ -418,8 +482,8 @@ __device__ __forceinline__ void dw_row(const __nv_bfloat16* box,
 #pragma unroll
     for (int c = 0; c < NCOL; ++c) {
       const uint2 v = *reinterpret_cast<const uint2*>(row + c * C);
-      const float2 lo = x_in<Q, D>(bf16x2_to_float2(v.x), qd);
-      const float2 hi = x_in<Q, D>(bf16x2_to_float2(v.y), qd);
+      const float2 lo = x_in<QM, D>(bf16x2_to_float2(v.x), qd);
+      const float2 hi = x_in<QM, D>(bf16x2_to_float2(v.y), qd);
 #pragma unroll
       for (int kw = 0; kw < 3; ++kw) {
         const int px = c - kw * S;
@@ -438,14 +502,12 @@ __device__ __forceinline__ void dw_row(const __nv_bfloat16* box,
 #pragma unroll
   for (int px = 0; px < SEG; ++px)
     *reinterpret_cast<uint2*>(dst + px * 16) = make_uint2(
-        bf16x2(feature<Q>(acc[px][0], bias.x, qd),
-               feature<Q>(acc[px][1], bias.y, qd)),
-        bf16x2(feature<Q>(acc[px][2], bias.z, qd),
-               feature<Q>(acc[px][3], bias.w, qd)));
+        features<QM>(acc[px][0], acc[px][1], bias.x, bias.y, qd),
+        features<QM>(acc[px][2], acc[px][3], bias.z, bias.w, qd));
 }
 
 // Branch d of the spatial depthwise, its rows cut into 8/SEG segments.
-template <int SEG, bool Q>
+template <int SEG, int QM>
 __device__ __forceinline__ void dw_rows(const __nv_bfloat16* box,
                                         const float* wts, unsigned char* a_s,
                                         int C, int kp8, int tid,
@@ -455,9 +517,9 @@ __device__ __forceinline__ void dw_rows(const __nv_bfloat16* box,
   for (int i = tid; i < 3 * 8 * NSEG * C4; i += BTHREADS) {
     const int q = i % C4, r = i / C4, seg = r % NSEG, py = (r / NSEG) & 7;
     const int d = r / (8 * NSEG), px0 = seg * SEG;
-    if (d == 0) dw_row<0, SEG, Q>(box, wts, a_s, C, q, py, px0, kp8, qd);
-    else if (d == 1) dw_row<1, SEG, Q>(box, wts, a_s, C, q, py, px0, kp8, qd);
-    else dw_row<2, SEG, Q>(box, wts, a_s, C, q, py, px0, kp8, qd);
+    if (d == 0) dw_row<0, SEG, QM>(box, wts, a_s, C, q, py, px0, kp8, qd);
+    else if (d == 1) dw_row<1, SEG, QM>(box, wts, a_s, C, q, py, px0, kp8, qd);
+    else dw_row<2, SEG, QM>(box, wts, a_s, C, q, py, px0, kp8, qd);
   }
 }
 
@@ -476,7 +538,7 @@ __device__ __forceinline__ bool tile_pixel(const Plan& pl, int p, int b0,
 
 // Depthwise branch D of one pixel of a whole-image tile (the box is the
 // image itself) for channels 8g..8g+7; taps outside the image are zero.
-template <int D, bool Q>
+template <int D, int QM>
 __device__ __forceinline__ uint4 dw_pixel(const __nv_bfloat16* box,
                                           const float* wts, const Plan& pl,
                                           int C, int img, int py, int px,
@@ -485,7 +547,7 @@ __device__ __forceinline__ uint4 dw_pixel(const __nv_bfloat16* box,
   float acc[8];
   const float* bias = wts + 27 * C + d * C + g * 8;
 #pragma unroll
-  for (int e = 0; e < 8; ++e) acc[e] = Q ? 0.f : bias[e];
+  for (int e = 0; e < 8; ++e) acc[e] = QM != QNONE ? 0.f : bias[e];
   const int step = d + 1;
   const __nv_bfloat16* src = box + (size_t)img * pl.hy * pl.hx * C + g * 8;
 #pragma unroll
@@ -501,10 +563,10 @@ __device__ __forceinline__ uint4 dw_pixel(const __nv_bfloat16* box,
       const float4* wk = reinterpret_cast<const float4*>(
           wts + ((d * 3 + kh) * 3 + kw) * C + g * 8);
       const float4 w0 = wk[0], w1 = wk[1];
-      const float2 x0 = x_in<Q, D>(bf16x2_to_float2(v.x), qd);
-      const float2 x1 = x_in<Q, D>(bf16x2_to_float2(v.y), qd);
-      const float2 x2 = x_in<Q, D>(bf16x2_to_float2(v.z), qd);
-      const float2 x3 = x_in<Q, D>(bf16x2_to_float2(v.w), qd);
+      const float2 x0 = x_in<QM, D>(bf16x2_to_float2(v.x), qd);
+      const float2 x1 = x_in<QM, D>(bf16x2_to_float2(v.y), qd);
+      const float2 x2 = x_in<QM, D>(bf16x2_to_float2(v.z), qd);
+      const float2 x3 = x_in<QM, D>(bf16x2_to_float2(v.w), qd);
       acc[0] = fmaf(x0.x, w0.x, acc[0]);
       acc[1] = fmaf(x0.y, w0.y, acc[1]);
       acc[2] = fmaf(x1.x, w0.z, acc[2]);
@@ -515,47 +577,52 @@ __device__ __forceinline__ uint4 dw_pixel(const __nv_bfloat16* box,
       acc[7] = fmaf(x3.y, w1.w, acc[7]);
     }
   }
-#pragma unroll
-  for (int e = 0; e < 8; ++e) acc[e] = feature<Q>(acc[e], bias[e], qd);
-  return make_uint4(bf16x2(acc[0], acc[1]), bf16x2(acc[2], acc[3]),
-                    bf16x2(acc[4], acc[5]), bf16x2(acc[6], acc[7]));
+  return make_uint4(features<QM>(acc[0], acc[1], bias[0], bias[1], qd),
+                    features<QM>(acc[2], acc[3], bias[2], bias[3], qd),
+                    features<QM>(acc[4], acc[5], bias[4], bias[5], qd),
+                    features<QM>(acc[6], acc[7], bias[6], bias[7], qd));
 }
 
-template <bool Q>
+template <int QM>
 __device__ __forceinline__ uint4 dw_pixel_branch(const __nv_bfloat16* box,
                                                  const float* wts,
                                                  const Plan& pl, int C,
                                                  int img, int py, int px,
                                                  int d, int g,
                                                  const Qdq& qd) {
-  if (d == 0) return dw_pixel<0, Q>(box, wts, pl, C, img, py, px, g, qd);
-  if (d == 1) return dw_pixel<1, Q>(box, wts, pl, C, img, py, px, g, qd);
-  return dw_pixel<2, Q>(box, wts, pl, C, img, py, px, g, qd);
+  if (d == 0) return dw_pixel<0, QM>(box, wts, pl, C, img, py, px, g, qd);
+  if (d == 1) return dw_pixel<1, QM>(box, wts, pl, C, img, py, px, g, qd);
+  return dw_pixel<2, QM>(box, wts, pl, C, img, py, px, g, qd);
 }
 
-// The fuse product's sum plus its bias, through LeakyReLU(0.01). In QDQ
-// mode rounded as the JAX int8 engine's bf16 1x1 conv, bias add and
-// LeakyReLU are (its slope is bf16(0.01)); BN follows in fp32.
-template <bool Q>
-__device__ __forceinline__ float epilogue(float sum, float bias) {
-  if constexpr (Q) {
-    const float v = bf16r(bf16r(sum) + bf16r(bias));
-    return v >= 0.f ? v : bf16r(v * 0.0100097656f);
+// Two of the fuse product's sums plus their biases, through
+// LeakyReLU(0.01). In QDQ mode rounded as the JAX int8 engine's bf16 1x1
+// conv, bias add and LeakyReLU are (its slope is bf16(0.01), and
+// max(v, bf16(v * slope)) is LeakyReLU for a slope in (0, 1)); BN follows
+// in fp32.
+template <int QM>
+__device__ __forceinline__ float2 epilogue(float sum0, float sum1,
+                                           float2 bias) {
+  if constexpr (QM != QNONE) {
+    const uint32_t v = add_bf16x2(bf16x2(sum0, sum1), bf16x2(bias.x, bias.y));
+    constexpr uint32_t SLOPE = 0x3C243C24u;   // bf16(0.01) = 0.0100097656
+    return bf16x2_to_float2(max_bf16x2(v, mul_bf16x2(v, SLOPE)));
   }
-  const float v = sum + bias;
-  return v > 0.f ? v : 0.01f * v;
+  const float v0 = sum0 + bias.x, v1 = sum1 + bias.y;
+  return make_float2(v0 > 0.f ? v0 : 0.01f * v0, v1 > 0.f ? v1 : 0.01f * v1);
 }
 
 // At O = 64 (the first, widest blocks: C = 8 or 16, the most tiles) four
 // blocks share an SM; 64 registers a thread hold their 4- and 2-pixel
 // depthwise segments without spills.
-// Q: the int8 QDQ mode (ops/acff.py::acff_infer_plain with act_scales):
-// x QDQ'd per branch where the box columns are read, each feature's sum
-// without the bias rounded and QDQ'd where A is written (feature), and
-// the epilogue rounded as the JAX int8 engine rounds its fuse conv,
-// bias, LeakyReLU and BN (epilogue). Without Q, qd is not read and the
-// kernel is the plain bf16 one.
-template <int NH, bool Q>
+// QM (QMode), the int8 QDQ mode (ops/acff.py::acff_infer_plain with
+// act_scales): x QDQ'd once in the box (QSHARED) or per branch where the
+// box columns are read (QBRANCH), each feature's sum without the bias
+// rounded and QDQ'd where A is written (feature), and the epilogue rounded
+// as the JAX int8 engine rounds its fuse conv, bias, LeakyReLU and BN
+// (epilogue). In QNONE, qd is not read and the kernel is the plain bf16
+// one.
+template <int NH, int QM>
 __global__ void __launch_bounds__(BTHREADS, NH == 32 ? 4 : 1)
 acff_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
                  const float* __restrict__ dw_w, const float* __restrict__ dw_b,
@@ -597,6 +664,23 @@ acff_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
     mbar_expect_tx(bar, box_bytes);
     tma_load_box(dst, &xmap, bar, 0, x0, y0, t / per_image * pl.images);
   };
+  // QSHARED, all threads: once box `it` has landed, rewrite it in place as
+  // bf16(QDQ(x, s_x)), each element once; the depthwise then reads it as
+  // the bf16 kernel does. Box it + 1 is done while tile it's product runs
+  // on the tensor cores, and the epilogue's barriers order it before that
+  // tile's depthwise.
+  auto qdq_box = [&](int it) {
+    mbar_wait(bar_box + 8 * (it & 1), (it >> 1) & 1);
+    uint4* v = reinterpret_cast<uint4*>(sm + L.box + (it & 1) * L.boxsz);
+    for (int i = tid; i < box_bytes / 16; i += BTHREADS) {
+      uint4 e = v[i];
+      e.x = qdq_bf16x2(e.x, qd.s[0], qd.inv[0]);
+      e.y = qdq_bf16x2(e.y, qd.s[0], qd.inv[0]);
+      e.z = qdq_bf16x2(e.z, qd.s[0], qd.inv[0]);
+      e.w = qdq_bf16x2(e.w, qd.s[0], qd.inv[0]);
+      v[i] = e;
+    }
+  };
   auto issue_chunk = [&](int u) {  // one thread: B for chunk use u
     const int c = u % nchunks, kc = min(KCHUNK, L.kp - c * KCHUNK);
     const uint32_t bytes = kc * O * 2, bar = bar_b + 8 * (u & 1);
@@ -631,13 +715,19 @@ acff_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
     unsigned char* buf = sm + L.box + (it & 1) * L.boxsz;
     const __nv_bfloat16* box = reinterpret_cast<const __nv_bfloat16*>(buf);
     mbar_wait(bar_box + 8 * (it & 1), (it >> 1) & 1);
+    if constexpr (QM == QSHARED) {
+      if (it == 0) {
+        qdq_box(0);
+        __syncthreads();
+      }
+    }
 
     if (pl.origin == 2) {
       // Spatial tile: one (branch, row segment, 4-channel group) an item;
       // shorter segments where C is small, so that most threads get one.
-      if (C >= 48) dw_rows<8, Q>(box, wts, a_s, C, kp8, tid, qd);
-      else if (C >= 16) dw_rows<4, Q>(box, wts, a_s, C, kp8, tid, qd);
-      else dw_rows<2, Q>(box, wts, a_s, C, kp8, tid, qd);
+      if (C >= 48) dw_rows<8, QM>(box, wts, a_s, C, kp8, tid, qd);
+      else if (C >= 16) dw_rows<4, QM>(box, wts, a_s, C, kp8, tid, qd);
+      else dw_rows<2, QM>(box, wts, a_s, C, kp8, tid, qd);
     } else {
       // Whole images: one (branch d, pixel p, 8-channel group g) an item.
       // Eight neighbouring threads take the eight pixels of one A
@@ -651,7 +741,7 @@ acff_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
                                      py, px);
         // A[p][k], k = d*C + 8g: core matrix (p/8, k/8), row p%8.
         *reinterpret_cast<uint4*>(a_s + a_offset(p, d * C8 + g, kp8)) =
-            live ? dw_pixel_branch<Q>(box, wts, pl, C, img, py, px, d, g, qd)
+            live ? dw_pixel_branch<QM>(box, wts, pl, C, img, py, px, d, g, qd)
                  : make_uint4(0, 0, 0, 0);
       }
     }
@@ -675,6 +765,9 @@ acff_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
                             kp8 * A_LBO),
                   gmma_desc(b_base + 2 * s * 128, 128, kc * 16));
       asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      if constexpr (QM == QSHARED) {
+        if (c == nchunks - 1 && it + 1 < my_tiles) qdq_box(it + 1);
+      }
       asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
       fence_operands(acc);
       if (u + 2 < uses) {   // both warpgroups are done with this stage
@@ -695,10 +788,10 @@ acff_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
       const float2 sh = *reinterpret_cast<const float2*>(shift + col);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const float v0 = epilogue<Q>(acc[4 * n + 2 * i], fb.x);
-        const float v1 = epilogue<Q>(acc[4 * n + 2 * i + 1], fb.y);
+        const float2 v =
+            epilogue<QM>(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1], fb);
         *reinterpret_cast<uint32_t*>(buf + (row0 + 8 * i) * SROW + col * 2) =
-            bf16x2(fmaf(v0, sc.x, sh.x), fmaf(v1, sc.y, sh.y));
+            bf16x2(fmaf(v.x, sc.x, sh.x), fmaf(v.y, sc.y, sh.y));
       }
     }
     __syncthreads();
@@ -1331,7 +1424,7 @@ cudaError_t persistent_grid(int bytes, int n_tiles, int* grid) {
   return e;
 }
 
-template <int NH, bool Q>
+template <int NH, int QM>
 cudaError_t launch_bf16(const void* x, const float* dw_w, const float* dw_b,
                         const void* fuse_op, const float* fuse_b,
                         const float* scale, const float* shift, void* out,
@@ -1344,9 +1437,9 @@ cudaError_t launch_bf16(const void* x, const float* dw_w, const float* dw_b,
       Smem(C, 2 * NH, pl.images * pl.hy * pl.hx * C * 2).total + 128;
   int grid = 0;
   if (e == cudaSuccess)
-    e = persistent_grid<acff_bf16_kernel<NH, Q>>(bytes, n_tiles, &grid);
+    e = persistent_grid<acff_bf16_kernel<NH, QM>>(bytes, n_tiles, &grid);
   if (e != cudaSuccess) return e;
-  acff_bf16_kernel<NH, Q><<<grid, BTHREADS, bytes, stream>>>(
+  acff_bf16_kernel<NH, QM><<<grid, BTHREADS, bytes, stream>>>(
       map, dw_w, dw_b, static_cast<const __nv_bfloat16*>(fuse_op), fuse_b,
       scale, shift, static_cast<__nv_bfloat16*>(out), B, H, W, C, pl,
       n_tiles, qd);
@@ -1396,13 +1489,37 @@ cudaError_t by_width(int O, F&& f) {
   }
 }
 
+// f(std::integral_constant<int, qm>) for the bf16 kernel's variants (QMode).
+template <class F>
+cudaError_t by_qmode(int qm, F&& f) {
+  switch (qm) {
+    case QNONE: return f(std::integral_constant<int, QNONE>{});
+    case QSHARED: return f(std::integral_constant<int, QSHARED>{});
+    case QBRANCH: return f(std::integral_constant<int, QBRANCH>{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// configure<Kernel> for `bytes` of dynamic shared memory, and the kernel's
+// registers a thread.
+template <auto Kernel>
+cudaError_t footprint(int bytes, int* per_sm, int* regs) {
+  cudaFuncAttributes attr;
+  cudaError_t e = configure<Kernel>(bytes, per_sm);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, Kernel);
+  if (e == cudaSuccess) *regs = attr.numRegs;
+  return e;
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes. Launches on `stream`, allocates
 // nothing, does not synchronise; returns a CUDA error code (0 on success).
-// mode: 0 fp32 x, 1 bf16 x, 2 bf16 x in int8 QDQ mode (ops/acff.py::MODES)
-// with the activation scales s_x1, s_x2, s_x3 (depthwise inputs) and s_f
-// (fuse input), finite and > 0; they are not read in the other modes.
+// mode (ops/acff.py::MODES): 0 fp32 x, 1 bf16 x, and bf16 x in int8 QDQ
+// mode with the activation scales s_x1, s_x2, s_x3 (depthwise inputs) and
+// s_f (fuse input), finite and > 0: 2 with the box QDQ'd once (s_x1 ==
+// s_x2 == s_x3, else cudaErrorInvalidValue), 3 QDQ'd per branch (any
+// scales). The scales are not read in modes 0 and 1.
 // fuse_op is fuse_w packed for the kernel of x's dtype
 // (ops/acff.py::pack_fuse_operand for bf16, pack_fuse_operand_tf32 for
 // fp32, in chunks of fp32_chunk(C) channels); th .. n_tiles are the tile
@@ -1430,7 +1547,7 @@ extern "C" int acff_infer_launch(const void* x, const float* dw_w,
       n_tiles != per_batch * tiles_h * tiles_w)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mode < 0 || mode > 2) return static_cast<int>(cudaErrorInvalidValue);
+  if (mode < 0 || mode > 3) return static_cast<int>(cudaErrorInvalidValue);
   if (mode == 0) {
     if (C % 4) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(by_width(O, [&](auto nh) {
@@ -1441,47 +1558,51 @@ extern "C" int acff_infer_launch(const void* x, const float* dw_w,
   }
   if (C % 8 || C > 256) return static_cast<int>(cudaErrorInvalidValue);
   Qdq qd{{s_x1, s_x2, s_x3, s_f}, {}};
-  for (int i = 0; i < 4 && mode == 2; ++i) {
+  for (int i = 0; i < 4 && mode >= 2; ++i) {
     const float v = qd.s[i];
     if (!(v > 0.f && v <= 3.4e38f)) return static_cast<int>(cudaErrorInvalidValue);
     qd.inv[i] = 1.0f / v;   // IEEE division on the host: the fp32 reciprocal
   }
+  if (mode == 2 && !(s_x1 == s_x2 && s_x2 == s_x3))
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(by_width(O, [&](auto nh) {
     constexpr int NH = decltype(nh)::value;
-    return mode == 2
-               ? launch_bf16<NH, true>(x, dw_w, dw_b, fuse_op, fuse_b, scale,
-                                       shift, out, B, H, W, C, pl, n_tiles,
-                                       qd, s)
-               : launch_bf16<NH, false>(x, dw_w, dw_b, fuse_op, fuse_b,
-                                        scale, shift, out, B, H, W, C, pl,
-                                        n_tiles, qd, s);
+    return by_qmode(mode - 1, [&](auto qm) {
+      return launch_bf16<NH, decltype(qm)::value>(
+          x, dw_w, dw_b, fuse_op, fuse_b, scale, shift, out, B, H, W, C, pl,
+          n_tiles, qd, s);
+    });
   }));
 }
 
 // The bf16 kernel's dynamic shared memory for C, O and an input box of
-// box_bytes, and how many of its blocks fit on one SM, in QDQ mode where
-// qdq is not 0.
-extern "C" int acff_bf16_footprint(int C, int O, int box_bytes, int qdq,
-                                   int* smem_bytes, int* blocks_per_sm) {
+// box_bytes, how many of its blocks fit on one SM and its registers a
+// thread, in the variant of `mode` (1 bf16, 2 and 3 the int8 QDQ ones, as
+// acff_infer_launch takes it).
+extern "C" int acff_bf16_footprint(int C, int O, int box_bytes, int mode,
+                                   int* smem_bytes, int* blocks_per_sm,
+                                   int* regs) {
   return static_cast<int>(by_width(O, [&](auto nh) {
     constexpr int NH = decltype(nh)::value;
     *smem_bytes = Smem(C, 2 * NH, box_bytes).total + 128;
-    return qdq ? configure<acff_bf16_kernel<NH, true>>(*smem_bytes,
-                                                       blocks_per_sm)
-               : configure<acff_bf16_kernel<NH, false>>(*smem_bytes,
-                                                        blocks_per_sm);
+    return by_qmode(mode - 1, [&](auto qm) {
+      return footprint<acff_bf16_kernel<NH, decltype(qm)::value>>(
+          *smem_bytes, blocks_per_sm, regs);
+    });
   }));
 }
 
 // The fp32 kernel's dynamic shared memory for C, O and the tile plan's box
-// (images x hy x hx pixels), and how many of its blocks fit on one SM.
+// (images x hy x hx pixels), how many of its blocks fit on one SM and its
+// registers a thread.
 extern "C" int acff_fp32_footprint(int C, int O, int images, int hy, int hx,
-                                   int* smem_bytes, int* blocks_per_sm) {
+                                   int* smem_bytes, int* blocks_per_sm,
+                                   int* regs) {
   const Plan pl{0, 0, images, 0, 0, hy, hx, 0};
   return static_cast<int>(by_width(O, [&](auto nh) {
     constexpr int NH = decltype(nh)::value;
     *smem_bytes = fp32_smem(C, 2 * NH, pl);
-    return configure<acff_fp32_kernel<NH>>(*smem_bytes, blocks_per_sm);
+    return footprint<acff_fp32_kernel<NH>>(*smem_bytes, blocks_per_sm, regs);
   }));
 }
 

@@ -32,7 +32,10 @@ both with the fuse product on tensor cores (``wgmma``):
   it (``depthwise_features``, ``acff_infer_plain``). QDQ multiplies by the
   fp32 reciprocal of the scale, as XLA compiles the JAX engine's division
   by a constant; the C entry takes the four scales and makes the
-  reciprocals.
+  reciprocals. Two variants compute it (``qdq_variant``): "int8", where
+  the three depthwise scales are one (as calibration makes them), QDQs
+  each input box element once in shared memory; "int8_branch" QDQs each
+  load with its branch's scale.
 
 The host side of the kernels lives here, where the CPU tests reach it:
 ``tile_plan`` (which output pixels one thread block owns, both kernels),
@@ -60,11 +63,12 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ACFF_KERNEL = CudaKernel("acff", "acff_infer_launch",
                          [_P] * 8 + [_I] * 15 + [_F] * 4 + [_P])
 # Launches of each kernel behind ACFF_KERNEL, counted where the runtime
-# accepted them ("bf16": the bf16 kernel, "int8": its QDQ mode, "fp32":
-# the 3xTF32 kernel).
-LAUNCHES = {"bf16": 0, "int8": 0, "fp32": 0}
+# accepted them ("bf16": the bf16 kernel, "int8" and "int8_branch": its
+# QDQ mode with the box QDQ'd once or per branch, "fp32": the 3xTF32
+# kernel).
+LAUNCHES = {"bf16": 0, "int8": 0, "int8_branch": 0, "fp32": 0}
 # the C entry's mode argument
-MODES = {"fp32": 0, "bf16": 1, "int8": 2}
+MODES = {"fp32": 0, "bf16": 1, "int8": 2, "int8_branch": 3}
 
 Packed = Tuple[torch.Tensor, ...]
 
@@ -348,6 +352,15 @@ def _check_act_scales(x: torch.Tensor,
                          f"(s_x1, s_x2, s_x3, s_f), got {act_scales!r}")
 
 
+def qdq_variant(act_scales: Sequence[float]) -> str:
+    """The QDQ mode's variant for ``act_scales`` = (s_x1, s_x2, s_x3, s_f):
+    "int8" (the input box QDQ'd once for the three branches) where the
+    three depthwise scales are equal as the fp32 values the C entry takes,
+    else "int8_branch" (each branch QDQs its own loads)."""
+    s1, s2, s3 = (_F(v).value for v in act_scales[:3])
+    return "int8" if s1 == s2 == s3 else "int8_branch"
+
+
 def _check(x: torch.Tensor, dw_w, dw_b, fuse_w, fuse_b, scale, shift,
            act_scales: Optional[Sequence[float]] = None) -> None:
     if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
@@ -418,7 +431,8 @@ def acff_infer(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
     reads it in place of fuse_w: ``pack_fuse_operand(fuse_w)`` for bf16,
     ``pack_fuse_operand_tf32(fuse_w)`` for fp32; required on CUDA, not read
     on the CPU. ``act_scales`` (s_x1, s_x2, s_x3, s_f), with a bf16 x,
-    runs the bf16 kernel's int8 QDQ mode. A CPU tensor takes the plain
+    runs the bf16 kernel's int8 QDQ mode, in the variant ``qdq_variant``
+    picks. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernel on the current stream, and a
     failed build or launch raises."""
     if x.device.type == "cpu":
@@ -432,7 +446,7 @@ def acff_infer(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
     o = fuse_w.shape[-1]
     _check_operand(x, fuse_operand, c, o)
     quant = ("fp32" if x.dtype == torch.float32
-             else "bf16" if act_scales is None else "int8")
+             else "bf16" if act_scales is None else qdq_variant(act_scales))
     qs = [0.0] * 4 if act_scales is None else [float(v) for v in act_scales]
     out = torch.empty((b, h - 2, w - 2, o), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):

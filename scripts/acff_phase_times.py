@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with an H100:
 
-    python3 scripts/acff_phase_times.py [--quant bf16|int8|fp32]
+    python3 scripts/acff_phase_times.py [--quant bf16|int8|int8_branch|fp32]
 
 ``ncu`` is not available everywhere the kernel is measured, so this times
 variants of ``rtdm_tpu_torch/csrc/acff.cu`` with one phase removed each,
@@ -12,8 +12,11 @@ at batch 256: ``no_dw`` (no depthwise features), ``no_mma`` (no wgmma),
 ``no_epi`` (no epilogue into the staging tile), ``no_store`` (no output
 stores) and ``skeleton`` (all four removed: box loads, barriers and loops
 only). ``--quant int8`` runs the same cuts on the bf16 kernel's int8 QDQ
-mode, with act_scales that spread the codes over +-127 as
-``chip_smoke.kernel_inputs`` makes them. A variant computes garbage; only
+mode in its shared-box variant, and ``no_boxq`` (no QDQ pass over the
+box; in ``skeleton`` too), ``--quant int8_branch`` the cuts of bf16 on
+its per-branch variant, with act_scales that spread the codes over +-127
+as ``chip_smoke.kernel_inputs`` makes them (equal for ``int8``, unequal
+for ``int8_branch``). A variant computes garbage; only
 its time means anything, and the
 time a phase saves when removed is an upper bound on what it costs in the
 whole kernel (the phases overlap across resident blocks). The fp32 kernel
@@ -55,9 +58,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (DTYPES, ENGINES, FP64_REL_TOL, GOLDEN,  # noqa: E402
-                        MODELS, acff_inputs, card_line, graph_ms,
-                        real_input_errors)
+from chip_smoke import (BRANCH_SPREAD, DTYPES, ENGINES,  # noqa: E402
+                        FP64_REL_TOL, GOLDEN, MODELS, acff_inputs, card_line,
+                        graph_ms, real_input_errors)
 from rtdm_tpu_torch.ops import acff as ops, kernels  # noqa: E402
 
 OUT = ROOT / "build" / "phase_variants"
@@ -66,16 +69,16 @@ SHAPES = [(16, 64, 69), (8, 64, 69), (64, 96, 33), (96, 128, 15),
 BATCH = 256
 CUTS = {
     "no_dw": [(
-        "      if (C >= 48) dw_rows<8, Q>(box, wts, a_s, C, kp8, tid, qd);\n"
-        "      else if (C >= 16) dw_rows<4, Q>(box, wts, a_s, C, kp8, tid, "
+        "      if (C >= 48) dw_rows<8, QM>(box, wts, a_s, C, kp8, tid, qd);\n"
+        "      else if (C >= 16) dw_rows<4, QM>(box, wts, a_s, C, kp8, tid, "
         "qd);\n"
-        "      else dw_rows<2, Q>(box, wts, a_s, C, kp8, tid, qd);\n", "")],
+        "      else dw_rows<2, QM>(box, wts, a_s, C, kp8, tid, qd);\n", "")],
     "no_mma": [("for (int s = 0; s < kc / 16; ++s)",
                 "for (int s = 0; s < 0; ++s)")],
     "no_epi": [(
         "        *reinterpret_cast<uint32_t*>(buf + (row0 + 8 * i) * SROW + "
-        "col * 2) =\n            bf16x2(fmaf(v0, sc.x, sh.x), fmaf(v1, "
-        "sc.y, sh.y));", "        if (v0 == v1 + 1e30f) buf[0] = 1;")],
+        "col * 2) =\n            bf16x2(fmaf(v.x, sc.x, sh.x), fmaf(v.y, "
+        "sc.y, sh.y));", "        if (v.x == v.y + 1e30f) buf[0] = 1;")],
     "no_store": [(
         "      if (!tile_pixel(pl, p, b0, oy0, ox0, B, OH, OW, img, py, px)) "
         "continue;\n      __nv_bfloat16* dst =",
@@ -83,6 +86,10 @@ CUTS = {
 }
 CUTS["skeleton"] = [c for name in ("no_dw", "no_mma", "no_epi", "no_store")
                     for c in CUTS[name]]
+# the shared-box QDQ variant: the same cuts, and its pass over the box
+BOXQ = [("for (int i = tid; i < box_bytes / 16; i += BTHREADS) {",
+         "for (int i = tid; i < 0; i += BTHREADS) {")]
+CUTS_INT8 = {**CUTS, "no_boxq": BOXQ, "skeleton": CUTS["skeleton"] + BOXQ}
 # the fp32 kernel's product of one channel chunk
 PRODUCT = ("      if (KC == 16)\n"
            "        chunk_product<NH, 6>(acc, a_base, b_base, L.apart, "
@@ -222,14 +229,14 @@ def real_inputs(fns: dict) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--quant", choices=("bf16", "int8", "fp32"),
-                    default="bf16")
+    ap.add_argument("--quant", choices=tuple(ops.MODES), default="bf16")
     quant = ap.parse_args().quant
     if not torch.cuda.is_available():
         print("CUDA is not available", file=sys.stderr)
         return 2
     bf16 = quant != "fp32"
-    fns = build_all(variant_sources(CUTS if bf16 else CUTS_FP32))
+    fns = build_all(variant_sources(
+        CUTS_INT8 if quant == "int8" else CUTS if bf16 else CUTS_FP32))
     rng = np.random.default_rng(0)
     card = card_line()
     dtype = DTYPES[quant]
@@ -246,10 +253,11 @@ def main() -> int:
                    else ops.pack_fuse_operand_tf32(a[3]))
         plan = ops.tile_plan(BATCH, h, h)
         qs = [0.0] * 4
-        if quant == "int8":
+        if quant.startswith("int8"):
             s_x = a[0].float().abs().max().item() / 127
+            spread = BRANCH_SPREAD if quant == "int8_branch" else (1.0,) * 3
             feat = ops.depthwise_features(*a[:3])
-            qs = [s_x] * 3 + [feat.abs().max().item() / 127]
+            qs = [s_x * f for f in spread] + [feat.abs().max().item() / 127]
         out = torch.empty((BATCH, h - 2, h - 2, o), dtype=dtype,
                           device="cuda")
         times, errors = {}, {}

@@ -337,6 +337,141 @@ def test_act_scales_checks(rng, bad):
         ops.acff_infer(x, *w, act_scales=bad)
 
 
+@pytest.mark.parametrize("scales,want", [
+    ((0.1, 0.1, 0.1, 0.2), "int8"),
+    ((0.1, 0.07, 0.13, 0.2), "int8_branch"),
+    ((0.1, 0.1, 0.1 * (1 + 1e-12), 0.2), "int8"),       # one fp32 value
+    ((0.1, float(np.nextafter(np.float32(0.1), np.float32(1))), 0.1, 0.2),
+     "int8_branch"),                                      # one fp32 ulp
+    ((np.float32(0.5), 0.5, np.float64(0.5), 3.0), "int8"),
+])
+def test_qdq_variant_follows_the_branch_scales(scales, want):
+    """The wrapper takes the shared-box QDQ variant where the three
+    depthwise scales are equal as the fp32 values the C entry receives, and
+    the per-branch one otherwise; s_f plays no part."""
+    assert ops.qdq_variant(scales) == want
+    assert ops.MODES[want] in (2, 3) and want in ops.LAUNCHES
+
+
+@pytest.mark.parametrize("model", ["squeeze-ernet", "squeeze-redconv",
+                                   "ernet"])
+def test_int8_engines_take_the_shared_variant(model):
+    """Calibration gives the three branches of every ACFF block of the
+    committed int8 engines one scale (they read one x), so every block runs
+    the shared-box QDQ variant; the quantized model hands each block those
+    scales."""
+    from rtdm_tpu_torch.export.engine import Engine
+    from rtdm_tpu_torch.quant.int8 import acff_scales
+    engine_dir = Path(__file__).resolve().parents[1] / "artifacts" / \
+        "engines" / f"{model}_int8"
+    with np.load(engine_dir / "act_scales.npz") as z:
+        scales = dict(z)
+    blocks = sorted({k.split("/")[0] for k in scales if "/conv1" in k})
+    assert len(blocks) == (6 if model == "ernet" else 4)
+    for block in blocks:
+        s = [np.float32(scales[f"{block}/conv{i}"]) for i in (1, 2, 3)]
+        assert s[0] == s[1] == s[2] > 0, block
+        assert ops.qdq_variant(acff_scales(scales, block)) == "int8"
+    eng = Engine.load(str(engine_dir), device="cpu")
+    got = [m.act_scales for m in eng.model.modules() if isinstance(m, ACFF)]
+    assert len(got) == len(blocks)
+    assert all(ops.qdq_variant(s) == "int8" for s in got)
+
+
+def test_shared_box_qdq_is_idempotent_on_every_bf16_value():
+    """The shared-box variant QDQs the box once and the kernel's per-branch
+    QDQ would do it again: for every finite bf16 value v and scales from
+    1e-30 to 1e30, bf16(QDQ(bf16(QDQ(v, s)), s)) == bf16(QDQ(v, s)) (the
+    bf16 rounding moves v / s by under 127 * 2^-9 < 1/2 a code)."""
+    from rtdm_tpu_torch.quant.int8 import fake_quant_tensor
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16)
+    v = bits.view(torch.bfloat16).float()
+    v = v[torch.isfinite(v)]
+    rng = np.random.default_rng(5)
+    scales = np.concatenate([np.logspace(-30, 30, 61),
+                             10.0 ** rng.uniform(-6, 3, 40)])
+    for s in scales.astype(np.float32):
+        once = fake_quant_tensor(v, s).bfloat16().float()
+        twice = fake_quant_tensor(once, s).bfloat16().float()
+        assert torch.equal(once, twice), s
+
+
+def _bf16_round_once(x: torch.Tensor) -> torch.Tensor:
+    """float64 x (normal, in bf16's exponent range) rounded to bf16 once,
+    to nearest even: what a bf16x2 instruction with .rn gives for the exact
+    result that x holds."""
+    u = x.view(torch.int64)
+    u = (u + (1 << 44) - 1 + ((u >> 45) & 1)) & ~((1 << 45) - 1)
+    return u.view(torch.float64)
+
+
+@pytest.mark.parametrize("identity", ["add", "leaky", "rint"])
+def test_qdq_kernel_arithmetic_matches_fp32_then_bf16(identity):
+    """The QDQ mode's arithmetic in the kernel against the fp32 steps of the
+    plain version, in plain torch: add.rn.bf16x2 of two bf16 values (one
+    rounding of the exact sum) is their fp32 sum rounded to bf16, also
+    where their exponents lie far apart; max(v, bf16(v * bf16(0.01))) is
+    LeakyReLU's bf16(v * slope) below 0, for every finite bf16 v; and
+    rounding a clamped t by adding and subtracting 1.5 * 2^23 in fp32 is
+    rint(t) (half to even) over [-127.5, 127.5]."""
+    rng = np.random.default_rng(7)
+    if identity == "add":
+        n = 1 << 20
+        mant = rng.integers(128, 256, size=(2, n))
+        exp = rng.integers(-60, 60, size=n)
+        gap = rng.integers(0, 30, size=n)
+        sign = rng.choice([-1.0, 1.0], size=(2, n))
+        a = sign[0] * mant[0] * 2.0 ** (exp - 7.0)
+        b = sign[1] * mant[1] * 2.0 ** (exp - gap - 7.0)
+        a, b = torch.from_numpy(a), torch.from_numpy(b)
+        assert torch.equal(a.bfloat16().double(), a)      # exact in bf16
+        fp32 = (a.float() + b.float()).bfloat16().double()
+        once = _bf16_round_once(a + b)                   # a + b exact here
+        keep = (a + b) != 0
+        assert torch.equal(fp32[keep], once[keep])
+    elif identity == "leaky":
+        bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32)
+        v = bits.to(torch.int16).view(torch.bfloat16)
+        v = v[torch.isfinite(v.float())]
+        slope = torch.tensor(0.01).bfloat16()
+        scaled = (v.float() * slope.float()).bfloat16()  # exact, then once
+        want = torch.where(v.float() >= 0, v.float(), scaled.float())
+        assert torch.equal(torch.maximum(v.float(), scaled.float()), want)
+    else:
+        k = torch.arange(-128, 128, dtype=torch.float32) + 0.5
+        near = torch.cat([torch.nextafter(k, k + d) for d in (-1, 1)] + [k])
+        t = torch.cat([near, torch.from_numpy(
+            rng.uniform(-127.5, 127.5, 1 << 20).astype(np.float32))])
+        t = t.clamp(-127, 127)
+        magic = torch.tensor(12582912.0)
+        assert torch.equal((t + magic) - magic, torch.round(t))
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_plain_qdq_block_is_the_same_on_a_qdq_box(seed):
+    """The shared-box identity in the plain version: at act_scales (s, s,
+    s, s_f), ``acff_infer_plain`` on x and on bf16(QDQ(x, s)) is bit-equal
+    (features and output), at scales that spread x over +-127 codes, clip
+    it, or leave it a few codes; the claim ``ACFF.kernel_input`` relies on
+    too. Spatial and whole-image shapes at C = 8-64."""
+    from rtdm_tpu_torch.quant.int8 import fake_quant_tensor
+    rng = np.random.default_rng(100 + seed)
+    c, o, hw = [(8, 64, 11), (16, 64, 9), (64, 96, 6)][seed % 3]
+    x, *w = _kernel_args(rng, 2, c, o, hw, torch.bfloat16, "cpu")
+    x = (x.float() * float(10.0 ** rng.uniform(-2, 2))).bfloat16()
+    top = x.float().abs().max().item()
+    for factor in (1.0, 0.3, 20.0):
+        s = float(np.float32(top * factor / 127 * rng.uniform(0.9, 1.1)))
+        s_f = float(np.float32(ops.depthwise_features(
+            x, w[0], w[1]).abs().max().item() / 127))
+        qs = (s, s, s, s_f)
+        xq = fake_quant_tensor(x.float(), s).bfloat16()
+        assert torch.equal(ops.depthwise_features(x, w[0], w[1], qs),
+                           ops.depthwise_features(xq, w[0], w[1], qs))
+        assert torch.equal(ops.acff_infer_plain(x, *w, act_scales=qs),
+                           ops.acff_infer_plain(xq, *w, act_scales=qs))
+
+
 def _kernel_args(rng, b, c, o, hw, dtype, device):
     x = torch.from_numpy(rng.normal(size=(b, hw, hw, c)).astype(np.float32))
     args = [rng.normal(size=(3, 3, 3, c)) * 0.3, rng.normal(size=(3, c)),
@@ -619,11 +754,14 @@ def _qdq_scales(x, dw_w, dw_b, spread=(1.0, 1.3, 0.7)):
 def test_cuda_qdq_mode_matches_plain():
     """The bf16 kernel's int8 QDQ mode against acff_infer_plain with the
     same act_scales, at batch 1, 3 and 5: spatial tiles (C=16, 96) and
-    packed whole images (C=64 and 128 at 6x6). Held at bf16's 2e-2: both
+    packed whole images (C=64 and 128 at 6x6), with equal branch scales
+    (the shared-box variant, ``LAUNCHES["int8"]``) and unequal ones (the
+    per-branch variant, ``"int8_branch"``). Held at bf16's 2e-2: both
     round the features and the output to bf16, and the fuse product's
     sum, rounded to bf16 before the bias, can round the other way in
     another summation order; a feature that moves by one bf16 step moves
-    by at most one int8 code."""
+    by at most one int8 code. The C entry refuses the shared variant
+    (mode 2) at unequal scales."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
     torch.backends.cudnn.allow_tf32 = False
@@ -632,15 +770,25 @@ def test_cuda_qdq_mode_matches_plain():
     for c, o, hw in [(16, 64, 11), (96, 128, 15), (64, 256, 6),
                      (128, 256, 6)]:
         for b in (1, 3, 5):
-            args = _kernel_args(rng, b, c, o, hw, torch.bfloat16, "cuda")
-            qs = _qdq_scales(args[0], args[1], args[2])
-            before = dict(ops.LAUNCHES)
-            got = ops.acff_infer(*args, ops.pack_fuse_operand(args[3]),
-                                 act_scales=qs)
-            torch.cuda.synchronize()
-            assert ops.LAUNCHES["int8"] == before["int8"] + 1
-            assert ops.LAUNCHES["bf16"] == before["bf16"]
-            want = ops.acff_infer_plain(*args, act_scales=qs)
-            assert got.dtype == torch.bfloat16 and got.shape == want.shape
-            torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
-                                       atol=2e-2)
+            for spread, variant in (((1.0, 1.0, 1.0), "int8"),
+                                    ((1.0, 1.3, 0.7), "int8_branch")):
+                args = _kernel_args(rng, b, c, o, hw, torch.bfloat16,
+                                    "cuda")
+                qs = _qdq_scales(args[0], args[1], args[2], spread)
+                fuse_op = ops.pack_fuse_operand(args[3])
+                before = dict(ops.LAUNCHES)
+                got = ops.acff_infer(*args, fuse_op, act_scales=qs)
+                torch.cuda.synchronize()
+                assert ops.LAUNCHES == {
+                    k: n + (k == variant) for k, n in before.items()}
+                want = ops.acff_infer_plain(*args, act_scales=qs)
+                assert got.dtype == torch.bfloat16 and got.shape == want.shape
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=2e-2, atol=2e-2)
+    plan = ops.tile_plan(b, hw, hw)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ops.ACFF_KERNEL.launch(
+            args[0].data_ptr(), args[1].data_ptr(), args[2].data_ptr(),
+            fuse_op.data_ptr(), *(a.data_ptr() for a in args[4:]),
+            got.data_ptr(), b, hw, hw, c, o, ops.MODES["int8"],
+            *plan.scalars(), *qs, torch.cuda.current_stream().cuda_stream)

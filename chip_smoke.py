@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's classifier engine on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's classifier and detector engines on one
+NVIDIA GPU.
 
 Run from the root of a checkout, on a machine with one H100:
 
@@ -44,7 +45,20 @@ non-zero exit, and the result line is printed only at the end:
      frames/s at batch 256, its fp32 and int8 engines at batch 1 and 256,
      with peak device memory, and a profiler breakdown by kernel of the
      bf16 batch-256 and batch-1 calls and the int8 batch-256 call;
-  6. one JSON line of kernels; then the last line, the result.
+  6. detection: both committed int8 detector engines
+     (artifacts/engines/{yolov4-tiny,yolov5s}-mini_int8) loaded on the card
+     at their stored batch of 16, on the 10 letterboxed golden frames
+     repeated to the batch, held against the port on the CPU and the JAX
+     golden (tests/goldens/torch_port/detector_int8.npz) by
+     rtdm_tpu_torch.eval.detection's gates, with each run's NMS candidates
+     (yolov4-tiny with equal counts in every frame too), no ACFF launch in a
+     detector
+     forward, decode and NMS on the card bit-equal to the CPU on the same
+     inputs; latency at batch 1 and 16 (median and p90 of 100 calls),
+     frames/s at 16, peak memory, and a profiler breakdown of the batch-16
+     call (upload, /255, network: convs and int8 QDQ, decode, top-k sort,
+     the NMS fixpoint with its steps, download);
+  7. one JSON line of kernels; then the last line, the result.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
 code 2 and no result without CUDA, or when run outside a checkout.
@@ -69,6 +83,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "goldens" / "torch_port" / "classifier_logits.npz"
 GOLDEN_INT8 = GOLDEN.with_name("classifier_int8_logits.npz")
+GOLDEN_DET = GOLDEN.with_name("detector_int8.npz")
+DETECTORS = ("yolov4-tiny-mini_int8", "yolov5s-mini_int8")
+CONV_KERNEL = re.compile(r"conv|cudnn|xmma|implicit|gemm|sm90_|sm80_",
+                         re.IGNORECASE)
 ENGINES = ROOT / "artifacts" / "engines"
 MODELS = ("squeeze-ernet", "squeeze-redconv", "ernet")
 BATCH = 256
@@ -749,6 +767,176 @@ def phase_profile(eng, x, card, forwards=5):
             f"x{n // forwards} {name[:90]}")
 
 
+def detector_latency(det, x, card, label):
+    """Host-clock latency of ``det(x)`` (upload, forward, download), median
+    and p90 of 100 calls after 5 warm-up calls, and the peak device
+    memory; returns the median ms."""
+    for _ in range(5):
+        det(x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    samples = []
+    for _ in range(100):
+        t0 = time.perf_counter()
+        det(x)               # ends in a device-to-host copy: synchronised
+        samples.append((time.perf_counter() - t0) * 1e3)
+    samples.sort()
+    med, p90 = samples[(len(samples) - 1) // 2], \
+        samples[int(0.9 * len(samples)) - 1]
+    say(f"latency {label} batch {len(x)}: median {med:.4f} ms, p90 "
+        f"{p90:.4f} ms (n=100, host clock); peak memory "
+        f"{torch.cuda.max_memory_allocated()} B [{card}]")
+    return med
+
+
+def detector_profile(det, x, card, label, calls=5):
+    """Where a detector call's device time goes: the ``det:*`` ranges of
+    export/detector.py and ops/nms.py, the int8 QDQ hooks (``qdq``), and
+    the conv kernels by name, per call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    det(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            det(x)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # the det:* / qdq ranges as the host saw them (each a sum of the device
+    # time of the kernels launched inside it); the profiler also lists
+    # their spans on the device timeline, which hold idle gaps: skipped
+    ranges = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and (
+                ev.name.startswith("det:") or ev.name == "qdq"):
+            ranges[ev.name] = ranges.get(ev.name, 0.0) + ev.device_time_total
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA
+               and e.self_device_time_total > 0
+               and not (e.key.startswith("det:") or e.key == "qdq")]
+    busy = sum(e.self_device_time_total for e in kernels)
+    if not busy:
+        say(f"profile {label}: the profiler recorded no device time; "
+            f"breakdown not measured")
+        return {}
+    convs = sum(e.self_device_time_total for e in kernels
+                if CONV_KERNEL.search(e.key))
+    launches = sum(e.count for e in kernels) / calls
+    rows = {"device_busy_us": busy / calls, "host_us": wall_us / calls,
+            "launches": launches, "convs_us": convs / calls,
+            **{k: v / calls for k, v in sorted(ranges.items())}}
+    rows["network_other_us"] = (rows.get("det:network", 0.0)
+                                - rows["convs_us"] - rows.get("qdq", 0.0))
+    say(f"profile {label} batch {len(x)}, {calls} calls: device busy "
+        f"{busy / calls:.1f} us/call of {wall_us / calls:.1f} us/call host "
+        f"clock ({100 * busy / wall_us:.1f}% busy), {launches:.0f} device "
+        f"launches a call; NMS fixpoint steps "
+        f"{det.stats.get('greedy_steps')} [{card}]")
+    for name, us in rows.items():
+        if name.endswith("_us") and name not in ("device_busy_us",
+                                                 "host_us") or \
+                name.startswith("det:") or name == "qdq":
+            say(f"  {name:20s} {us:10.1f} us/call "
+                f"{100 * us * calls / busy:5.1f}%")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        say(f"  kernel {e.self_device_time_total / calls:9.1f} us/call "
+            f"x{e.count // calls} {e.key[:80]}")
+    return rows
+
+
+def phase_detection(card):
+    """Phase 6: both committed detector engines on the card (see the module
+    docstring); returns one record per engine."""
+    from rtdm_tpu_torch.eval.detection import (candidates, compare_detections,
+                                               per_frame, summary)
+    from rtdm_tpu_torch.export.detector import load_detector
+    from rtdm_tpu_torch.ops.acff import ACFF_KERNEL, LAUNCHES
+    from rtdm_tpu_torch.ops.nms import batched_nms
+    from rtdm_tpu_torch.ops.yolo import decode_all
+    with np.load(GOLDEN_DET) as g:
+        golden = dict(g)
+    frames = golden["frames_416"]
+    records = {}
+    for name in DETECTORS:
+        directory = str(ENGINES / name)
+        t0 = time.perf_counter()
+        det = load_detector(directory)
+        load_s = time.perf_counter() - t0
+        b = det.batch_size
+        x = np.resize(frames, (b,) + frames.shape[1:])
+        ACFF_KERNEL.launches = 0
+        LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+        got = det(x)
+        acff = ACFF_KERNEL.launches + sum(LAUNCHES.values())
+        steps = det.stats["greedy_steps"]
+        if acff:
+            raise AssertionError(f"{name}: {acff} ACFF launches in a "
+                                 f"detector forward")
+        spec = det.spec
+        got = (*got, candidates(det.predictions(x), spec.conf_thres))
+        cpu_det = load_detector(directory, device="cpu")
+        cpu = (*cpu_det(x), candidates(cpu_det.predictions(x),
+                                       spec.conf_thres))
+        frames_of = [k % len(frames) for k in range(b)]
+        want = (golden[f"det_{name}"][frames_of],
+                golden[f"count_{name}"][frames_of],
+                per_frame(golden[f"cand_{name}"], frames_of))
+        reps = {}
+        for who, ref in (("cpu_port", cpu), ("jax_golden", want)):
+            reps[who] = compare_detections(*ref[:2], *got[:2],
+                                           spec.conf_thres, spec.iou_thres,
+                                           ref[2], got[2])
+            say(f"detect {name} card vs {who}: {summary(reps[who])}")
+            for row in reps[who]["edge_unmatched"]:
+                say(f"  at a decision edge: {row}")
+            if not reps[who]["ok"]:
+                raise AssertionError(f"{name} card vs {who}: "
+                                     f"{reps[who]['failures']}")
+            unequal = b - reps[who]["count_equal_frames"]
+            if name.startswith("yolov4-tiny") and unequal:
+                raise AssertionError(f"{name} card vs {who}: counts differ "
+                                     f"in {unequal} frames")
+        # decode and NMS on the card against the CPU on identical inputs
+        raw = det.raw_maps(torch.as_tensor(x, device="cuda"))
+        with torch.inference_mode():
+            pred = decode_all(raw, det.heads, x.shape[1:3])
+            pred_cpu = decode_all([r.cpu() for r in raw], det.heads,
+                                  x.shape[1:3])
+            kw = dict(multi_label=spec.multi_label, method=spec.nms_method,
+                      class_agnostic=spec.class_agnostic,
+                      classes=spec.classes)
+            nms_card = batched_nms(pred, spec.conf_thres, spec.iou_thres,
+                                   spec.max_det, spec.top_k, **kw)
+            nms_cpu = batched_nms(pred_cpu, spec.conf_thres, spec.iou_thres,
+                                  spec.max_det, spec.top_k, **kw)
+        decode_equal = torch.equal(pred.cpu(), pred_cpu)
+        nms_equal = all(torch.equal(a.cpu(), c)
+                        for a, c in zip(nms_card, nms_cpu))
+        say(f"detect {name}: decode on the card bit-equal to the CPU on the "
+            f"same raw maps: {decode_equal}; NMS on the same rows: "
+            f"{nms_equal}; ACFF launches in a forward: {acff}; NMS fixpoint "
+            f"steps: {steps}; load {load_s:.2f} s")
+        if not (decode_equal and nms_equal):
+            raise AssertionError(f"{name}: decode or NMS on the card differs "
+                                 f"from the CPU on the same inputs")
+        med = {1: detector_latency(load_detector(directory, batch_size=1),
+                                   x[:1], card, name),
+               b: detector_latency(det, x, card, name)}
+        say(f"throughput {name} batch {b}: {b * 1e3 / med[b]:.1f} frames/s "
+            f"(median) [{card}]")
+        records[name] = {
+            "batch": b, "acff_launches": acff, "greedy_steps": steps,
+            "latency_median_ms": med, "frames_per_s": b * 1e3 / med[b],
+            "vs": {k: {f: v[f] for f in ("bit_equal_frames",
+                                         "count_equal_frames", "matched",
+                                         "detections", "max_box_px",
+                                         "max_conf_diff", "min_iou")}
+                   for k, v in reps.items()},
+            "profile": detector_profile(det, x, card, name)}
+    return records
+
+
 def main() -> int:
     if not (ROOT / "rtdm_tpu_torch").is_dir() or not GOLDEN.exists():
         print("chip_smoke.py runs from the root of a checkout of the "
@@ -812,7 +1000,10 @@ def main() -> int:
     for key in (("bf16", 256), ("bf16", 1), ("int8", 256)):
         phase_profile(*engines[key], card)
 
-    # 6. kernels line: one entry a kernel (the QDQ mode of the bf16 kernel
+    # 6. detection
+    detection = phase_detection(card)
+
+    # 7. kernels line: one entry a kernel (the QDQ mode of the bf16 kernel
     # its own), summed over the ACFF blocks of one forward of its main path
     # (the Squeeze_ErNET engine of its precision), launches counted in that
     # forward
@@ -865,6 +1056,7 @@ def main() -> int:
             for q in DESIGN}
     say("kernel sums, Squeeze_ErNET blocks at batch 256: " + ", ".join(
         f"{q} {v:.4f} ms" for q, v in sums.items()) + f" [{card}]")
+    say("detection: " + json.dumps(detection))
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(f"card: {card}")
     say(json.dumps({"kernels": kernels_line}))

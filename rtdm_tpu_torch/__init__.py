@@ -1,5 +1,5 @@
-"""rtdm_tpu_torch — the classifier engine of ``rtdm_tpu`` in PyTorch and
-CUDA for an NVIDIA H100.
+"""rtdm_tpu_torch — the classifier and detector engines of ``rtdm_tpu`` in
+PyTorch and CUDA for an NVIDIA H100.
 
 A package beside ``rtdm_tpu``, which stays the reference: it imports
 ``torch``, numpy and PIL, never JAX and nothing of ``rtdm_tpu``. Module

@@ -1,4 +1,4 @@
-"""Engine precisions and the float-cast helper.
+"""Engine precisions, the float-cast helper and a scoped TF32 switch.
 
 Counterpart of ``rtdm_tpu/core/precision.py::_cast_floating``. The engine
 runs fp32, bf16 or int8 QDQ, which computes in bf16 as the JAX int8 engine
@@ -8,6 +8,7 @@ true fp16 engine does not exist in either package.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Mapping
 
 import torch
@@ -27,3 +28,18 @@ def cast_floating(tensors: Mapping[str, torch.Tensor],
     """Cast every floating tensor to ``dtype``; others pass unchanged."""
     return {k: v.to(dtype) if v.is_floating_point() else v
             for k, v in tensors.items()}
+
+
+@contextlib.contextmanager
+def tf32(on: bool):
+    """TF32 for cuDNN and cuBLAS set to ``on`` inside the ``with``; the
+    previous setting is restored after it."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = on
+    torch.backends.cuda.matmul.allow_tf32 = on
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved

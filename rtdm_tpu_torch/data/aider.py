@@ -124,8 +124,14 @@ class BatchLoader:
 
 def normalize_batch(images_u8: torch.Tensor, mean=IMAGENET_MEAN,
                     std=IMAGENET_STD) -> torch.Tensor:
-    """uint8 NHWC -> normalized float32 NHWC, on the tensor's device."""
-    x = images_u8.float() / 255.0
+    """uint8 NHWC -> normalized float32 NHWC, on the tensor's device.
+
+    Rounded as the jitted JAX function computes ``(x / 255 - mean) / std``:
+    ``fma(x, fp32(1/255), -mean) * fp32(1/std)``. XLA turns each division
+    by a constant into a multiply by its fp32 reciprocal and fuses the
+    first multiply with the subtraction (``addcmul``, one rounding)."""
+    x = images_u8.float()
     mean = torch.as_tensor(mean, dtype=torch.float32, device=x.device)
     std = torch.as_tensor(std, dtype=torch.float32, device=x.device)
-    return (x - mean) / std
+    inv255 = torch.full((), np.float32(1.0) / 255, device=x.device)
+    return torch.addcmul(-mean, x, inv255) * (1.0 / std)

@@ -1,0 +1,394 @@
+"""Fixed-batch detector engines: uint8 letterboxed frames -> boxes.
+
+Counterpart of ``rtdm_tpu/export/detector.py``. A ``Detector`` runs
+``/255 -> darknet or v5 graph -> decode -> NMS`` on the card and returns
+``det`` (n, max_det, 6) rows x1, y1, x2, y2, conf, cls (zero-padded) and
+``count`` (n,). An engine directory holds ``spec.json``, ``model.txt`` (the
+cfg or yaml text), ``params.npz`` (sealed: int8 kernel codes and
+per-channel scales) and, for int8, ``act_scales.npz``: the format the JAX
+package writes, so every detector directory in ``artifacts/engines/``
+loads in both.
+
+As the compiled JAX program computes it:
+- frames are padded with zero frames up to the engine's batch; any (h, w)
+  letterbox shape runs, decoded at its own strides;
+- ``/255`` is a multiply by fp32(1/255), then a cast to the engine's dtype
+  (bf16 for bf16 and int8); in an int8 darknet engine whose first layer is
+  a QDQ'd conv, XLA folds the /255 into that QDQ (one multiply of the
+  uint8 value by fp32(1/255) * fp32(1/s), no bf16 rounding in between),
+  and so does ``_preprocess``;
+- a darknet graph has conv+BN folded at build (``ops/fuse.py``);
+- int8 is ``quantize_params`` on the tree, bf16 parameters, and the
+  activation QDQ hooks of ``quant/int8.py::quantize_detector``;
+- the network's convs whose product BN reads in fp32 run as fp32 convs of
+  bf16 values. On the card TF32 is turned on for the network's forward of
+  a bf16 or int8 engine (bf16 operands are exact in TF32) and off for an
+  fp32 one, and restored after each call; decode and NMS run in fp32 with
+  TF32 off.
+
+Not ported: ``exec.xla`` / the executable cache (XLA executables, TPU
+only: neither written nor read), TTA (``spec.tta`` raises) and ``mesh``
+(multi-GPU, raises).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from rtdm_tpu_torch.core.device import resolve_device
+from rtdm_tpu_torch.core.precision import tf32
+from rtdm_tpu_torch.models.io import (flatten_tree, load_variables,
+                                      save_variables,
+                                      torch_state_dict_from_variables)
+
+
+@dataclasses.dataclass
+class DetectorSpec:
+    cfg_name: str
+    img_size: int = 416
+    conf_thres: float = 0.25
+    iou_thres: float = 0.45
+    max_det: int = 300
+    top_k: int = 512
+    quant: str = "bf16"            # fp32 | bf16 | int8
+    calib_method: str = "percentile"  # percentile | entropy
+    tta: bool = False
+    nms_method: str = "greedy"     # greedy | or | vision_batch | merge |
+    #                                soft | and
+    multi_label: bool = False
+    class_agnostic: bool = False
+    classes: Optional[Tuple[int, ...]] = None
+    fuse: bool = True              # fold conv+BN at build
+    version: str = "1"
+
+    def __post_init__(self):
+        if self.classes is not None:
+            self.classes = tuple(int(c) for c in self.classes)
+        q = {"fp16": "bf16", "half": "bf16"}.get(self.quant.lower(),
+                                                 self.quant.lower())
+        if q not in ("fp32", "bf16", "int8"):
+            raise ValueError(f"unknown detector quant {self.quant!r} "
+                             "(fp32|bf16|fp16|half|int8)")
+        self.quant = q
+
+
+def model_heads(model) -> Any:
+    """Head metadata for either family."""
+    return tuple(model.heads)
+
+
+def _family(model) -> str:
+    from rtdm_tpu_torch.models.yolov5 import YoloV5
+    return "yolov5" if isinstance(model, YoloV5) else "darknet"
+
+
+def _model_text(model) -> str:
+    return model.yaml_text if _family(model) == "yolov5" else model.cfg_text
+
+
+def _new_model(family: str, text: str, num_classes: Optional[int] = None,
+               device="cpu"):
+    from rtdm_tpu_torch.models.darknet import Darknet
+    from rtdm_tpu_torch.models.yolov5 import YoloV5
+    with torch.device(device):
+        return (YoloV5(text, num_classes) if family == "yolov5"
+                else Darknet(text))
+
+
+def load_detection_model(model_path: str, weights: Optional[str],
+                         img_size: int, num_classes: Optional[int] = None):
+    """(model, variables, heads) from a darknet .cfg or a v5 .yaml, with
+    ``.npz`` weights if given (opened at that path and nowhere else), else
+    a fresh init (v5: with the focal-prior Detect biases). ``.weights`` and
+    ``.pt`` imports are not ported yet."""
+    from rtdm_tpu_torch.models.darknet import create_darknet, init_darknet
+    from rtdm_tpu_torch.models.yolov5 import (create_yolov5,
+                                              initialize_detect_biases)
+    if weights and not weights.endswith(".npz"):
+        raise NotImplementedError(
+            f"{weights}: only .npz weights load here; .weights and .pt "
+            "imports are not ported yet (ROADMAP queue 1, tooling)")
+    if model_path.endswith((".yaml", ".yml")):
+        model = create_yolov5(model_path, num_classes)
+        variables = init_darknet(model)
+        variables = initialize_detect_biases(model, variables, img_size)
+    else:
+        model = create_darknet(model_path)
+        variables = init_darknet(model)
+    if weights:
+        variables = load_variables(weights)
+    return model, variables, model_heads(model)
+
+
+class Detector:
+    """Callable over uint8 letterboxed NHWC batches -> (det, count)."""
+
+    def __init__(self, model, variables: Dict[str, Any], spec: DetectorSpec,
+                 batch_size: int = 1, heads=None,
+                 act_scales: Optional[Dict[str, float]] = None,
+                 device="cuda", mesh=None):
+        """``model`` is a port ``Darknet`` or ``YoloV5`` (its structure;
+        the weights come from ``variables``, a JAX-layout tree)."""
+        from rtdm_tpu_torch.models.darknet import Darknet
+        from rtdm_tpu_torch.quant.int8 import (quantize_detector,
+                                               quantize_params)
+        if mesh is not None:
+            raise NotImplementedError(
+                "multi-GPU detector engines are not ported yet (ROADMAP "
+                "queue 1, multi-GPU)")
+        if spec.tta:
+            raise NotImplementedError(
+                "TTA is not ported yet (ROADMAP queue 1): jax.image.resize "
+                "antialiases its bilinear downscale and needs its own port")
+        self.spec = spec
+        self.model = model           # unfused: what save_detector writes
+        self.batch_size = int(batch_size)
+        self.device = resolve_device(device)
+        self.act_scales = ({k: float(v) for k, v in act_scales.items()}
+                           if act_scales else None)
+        if spec.quant == "int8" and not self.act_scales:
+            raise ValueError("an int8 detector needs act_scales (calibrate "
+                             "with build_detector(..., calib_images=...))")
+        heads = heads if heads is not None else model_heads(model)
+        self.heads = tuple(heads)
+        self.num_classes = int(self.heads[0].num_classes)
+        self.dtype = torch.float32 if spec.quant == "fp32" else torch.bfloat16
+
+        family, text = _family(model), _model_text(model)
+        if (spec.fuse and isinstance(model, Darknet)
+                and variables.get("batch_stats")):
+            from rtdm_tpu_torch.ops.fuse import (fuse_darknet_variables,
+                                                 strip_bn_from_cfg)
+            variables = fuse_darknet_variables(variables, text)
+            text = strip_bn_from_cfg(text)
+        if spec.quant == "int8":
+            variables = {**variables,
+                         "params": quantize_params(variables["params"])}
+        net = _new_model(family, text, getattr(model, "num_classes", None),
+                         device="meta")
+        state = {k: v.to(self.device) for k, v in
+                 torch_state_dict_from_variables(variables).items()}
+        params = {name for name, _ in net.named_parameters()}
+        state = {k: v.to(self.dtype) if k in params else v
+                 for k, v in state.items()}
+        net.load_state_dict(state, strict=True, assign=True)
+        self.net = net.eval()
+        self._input_scale = None
+        if spec.quant == "int8":
+            quantize_detector(self.net, self.act_scales)
+            first = getattr(self.net, "defs", ({},))[0]
+            if first.get("type") == "convolutional":
+                self._input_scale = self.act_scales.get("l0_conv")
+        self.stats: Dict[str, Any] = {}
+
+    def _preprocess(self, u8: torch.Tensor) -> torch.Tensor:
+        """uint8 NHWC -> the network's input, rounded as the compiled JAX
+        program rounds ``u8.astype(dtype) / 255``."""
+        x = u8.float()
+        inv255 = np.float32(1.0) / np.float32(255.0)
+        if self._input_scale is not None:
+            s = np.float32(self._input_scale)
+            gain = np.float32(inv255 * (np.float32(1.0) / s))
+            code = torch.clamp(torch.round(x * torch.tensor(gain)), -127, 127)
+            return (code * torch.tensor(s)).to(self.dtype)
+        return (x * torch.tensor(inv255)).to(self.dtype)
+
+    @torch.inference_mode()
+    def raw_maps(self, u8: torch.Tensor):
+        """Device uint8 NHWC -> the network's raw NHWC head maps."""
+        with tf32(self.spec.quant != "fp32"):
+            with record_function("det:normalize"):
+                x = self._preprocess(u8)
+            with record_function("det:network"):
+                return self.net(x)
+
+    @torch.inference_mode()
+    def decoded(self, u8: torch.Tensor) -> torch.Tensor:
+        """Device uint8 NHWC -> the decoded rows NMS takes, (n, N, 5+nc)."""
+        from rtdm_tpu_torch.ops.yolo import decode_all
+        raw = self.raw_maps(u8)
+        with tf32(False), record_function("det:decode"):
+            return decode_all(raw, self.heads, tuple(u8.shape[1:3]))
+
+    def predictions(self, images_u8) -> np.ndarray:
+        """uint8 NHWC frames (at most the batch) -> ``decoded`` on the host,
+        for holding two runs' NMS decisions against each other
+        (``eval/detection.py::candidates``)."""
+        x, n = self._upload(images_u8)
+        return self.decoded(x)[:n].float().cpu().numpy()
+
+    @torch.inference_mode()
+    def forward(self, u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Device uint8 NHWC -> (det, count) on the device."""
+        from rtdm_tpu_torch.ops.nms import batched_nms
+        spec = self.spec
+        pred = self.decoded(u8)
+        with tf32(False):
+            with record_function("det:nms"):
+                return batched_nms(pred, spec.conf_thres, spec.iou_thres,
+                                   spec.max_det, spec.top_k,
+                                   multi_label=spec.multi_label,
+                                   class_agnostic=spec.class_agnostic,
+                                   method=spec.nms_method,
+                                   classes=spec.classes, stats=self.stats)
+
+    def _upload(self, images_u8) -> Tuple[torch.Tensor, int]:
+        """n uint8 NHWC frames -> (one engine batch on the device, the
+        frames first and zero frames after them; n)."""
+        frames = torch.as_tensor(images_u8)
+        n = frames.shape[0]
+        b = self.batch_size
+        if n > b:
+            raise ValueError(f"batch {n} exceeds detector batch {b}")
+        if frames.dtype != torch.uint8 or frames.dim() != 4 \
+                or frames.shape[-1] != 3:
+            raise ValueError(f"expected uint8 frames (n, h, w, 3), got "
+                             f"{frames.dtype} {tuple(frames.shape)}")
+        with record_function("det:upload"):
+            x = torch.zeros((b,) + tuple(frames.shape[1:]),
+                            dtype=torch.uint8, device=self.device)
+            x[:n].copy_(frames)
+        return x, n
+
+    def submit(self, images_u8):
+        """Upload and run a batch without copying the result back: returns
+        (device det, device count, n); slice ``[:n]``."""
+        x, n = self._upload(images_u8)
+        det, count = self.forward(x)
+        return det, count, n
+
+    def warmup(self, shapes=None) -> float:
+        """Run a zero batch at each (h, w) (default: the square) once;
+        returns the seconds spent."""
+        import time
+        t0 = time.perf_counter()
+        s = self.spec.img_size
+        for h, w in (shapes or [(s, s)]):
+            _, count, _ = self.submit(
+                np.zeros((self.batch_size, h, w, 3), np.uint8))
+            count.cpu()
+        return time.perf_counter() - t0
+
+    def __call__(self, images_u8) -> Tuple[np.ndarray, np.ndarray]:
+        det, count, n = self.submit(images_u8)
+        with record_function("det:download"):
+            return det[:n].cpu().numpy(), count[:n].cpu().numpy()
+
+
+def build_detector(model_path: str, weights: Optional[str] = None,
+                   spec: Optional[DetectorSpec] = None, batch_size: int = 1,
+                   num_classes: Optional[int] = None,
+                   calib_images: Optional[np.ndarray] = None,
+                   device="cuda") -> Detector:
+    """A detector engine from a cfg/yaml and ``.npz`` weights. For int8,
+    ``calib_images`` (letterboxed uint8 NHWC) calibrate the activation
+    scales with ``spec.calib_method`` on the fp32 model on ``device``."""
+    spec = spec or DetectorSpec(cfg_name=os.path.basename(model_path))
+    device = resolve_device(device)
+    model, variables, heads = load_detection_model(
+        model_path, weights, spec.img_size, num_classes)
+    act_scales = None
+    if spec.quant == "int8":
+        if calib_images is None:
+            raise ValueError("int8 detector engines need calib_images for "
+                             "activation calibration")
+        from rtdm_tpu_torch.quant.calibrate import calibrate_detector
+        fp32 = _new_model(_family(model), _model_text(model),
+                          getattr(model, "num_classes", None), device="meta")
+        fp32.load_state_dict({k: v.to(device) for k, v in
+                              torch_state_dict_from_variables(
+                                  variables).items()},
+                             strict=True, assign=True)
+        act_scales = calibrate_detector(fp32.eval(), calib_images,
+                                        method=spec.calib_method)
+    det = Detector(model, variables, spec, batch_size, heads,
+                   act_scales=act_scales, device=device)
+    det._variables = variables
+    det._model_source = model_path
+    return det
+
+
+def save_detector(det: Detector, directory: str, sealed: bool = False
+                  ) -> str:
+    """Write ``spec.json`` + ``model.txt`` + ``params.npz`` (+
+    ``act_scales.npz``). ``sealed=True`` (int8 only) folds conv+BN
+    (darknet) and stores every kernel as int8 codes + per-channel scales
+    (``quant/int8.py::seal_kernel``); the fp32 masters are not kept."""
+    from rtdm_tpu_torch.models.darknet import Darknet
+    from rtdm_tpu_torch.quant.int8 import seal_kernel
+    os.makedirs(directory, exist_ok=True)
+    spec_d = dataclasses.asdict(det.spec)
+    variables = det._variables
+    model_text = _model_text(det.model)
+    if _family(det.model) == "yolov5":
+        spec_d["family"] = "yolov5"
+        spec_d["num_classes"] = det.model.num_classes
+    else:
+        spec_d["family"] = "darknet"
+    if sealed:
+        if det.spec.quant != "int8":
+            raise ValueError("sealed save is for int8 engines; other "
+                             "precisions keep canonical fp32 masters")
+        if (det.spec.fuse and isinstance(det.model, Darknet)
+                and variables.get("batch_stats")):
+            from rtdm_tpu_torch.ops.fuse import (fuse_darknet_variables,
+                                                 strip_bn_from_cfg)
+            variables = fuse_darknet_variables(variables, model_text)
+            model_text = strip_bn_from_cfg(model_text)
+        spec_d["sealed"] = True
+    spec_d["batch_size"] = det.batch_size
+    with open(os.path.join(directory, "spec.json"), "w") as f:
+        json.dump(spec_d, f, indent=2)
+    with open(os.path.join(directory, "model.txt"), "w") as f:
+        f.write(model_text)
+    if sealed:
+        out = {}
+        for key, val in flatten_tree(variables).items():
+            if key.endswith("/kernel"):
+                out[key + ".q"], out[key + ".s"] = seal_kernel(val)
+            else:
+                out[key] = val
+        np.savez(os.path.join(directory, "params.npz"), **out)
+    else:
+        save_variables(os.path.join(directory, "params.npz"), variables)
+    if det.act_scales:
+        np.savez(os.path.join(directory, "act_scales.npz"),
+                 **{k: np.float32(v) for k, v in det.act_scales.items()})
+    return directory
+
+
+def load_detector(directory: str, device="cuda", spec_overrides=None,
+                  batch_size: Optional[int] = None, mesh=None) -> Detector:
+    """Rebuild a saved engine on ``device``. ``spec_overrides`` replaces
+    DetectorSpec fields (thresholds, classes, max_det, ...); ``batch_size``
+    replaces the stored batch."""
+    with open(os.path.join(directory, "spec.json")) as f:
+        raw = json.load(f)
+    family = raw.pop("family", "darknet")
+    num_classes = raw.pop("num_classes", None)
+    stored_batch = raw.pop("batch_size", 1)
+    batch_size = stored_batch if batch_size is None else int(batch_size)
+    spec = DetectorSpec(**{k: v for k, v in raw.items()
+                           if k in DetectorSpec.__dataclass_fields__})
+    if spec_overrides:
+        spec = dataclasses.replace(spec, **spec_overrides)
+    with open(os.path.join(directory, "model.txt")) as f:
+        model_text = f.read()
+    model = _new_model(family, model_text, num_classes, device="meta")
+    variables = load_variables(os.path.join(directory, "params.npz"))
+    act_scales = None
+    scales_path = os.path.join(directory, "act_scales.npz")
+    if os.path.exists(scales_path):
+        with np.load(scales_path) as z:
+            act_scales = {k: float(z[k]) for k in z.files}
+    det = Detector(model, variables, spec, batch_size, model_heads(model),
+                   act_scales=act_scales, device=device, mesh=mesh)
+    det._variables = variables
+    return det

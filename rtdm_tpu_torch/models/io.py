@@ -7,10 +7,13 @@ and ``<leaf>.s`` scales dequantized) and ``infer_num_classes``.
 
 ``torch_state_dict_from_variables`` carries a variables tree onto the port's
 modules, whose submodules are named as the tree is (``conv1``,
-``acff1.conv1``, ``acff1.fused_conv``, ``acff1.batch_norm``, ``head.fc``):
-conv kernels HWIO -> OIHW (depthwise (3,3,1,C) -> (C,1,3,3)), dense (I,O)
--> (O,I), BN ``scale``/``bias`` -> ``weight``/``bias``, and
-``batch_stats/.../mean``/``var`` -> ``running_mean``/``running_var``.
+``acff1.conv1``, ``head.fc``; the detectors' ``l{i}_conv``,
+``m{i}.cv1.conv``, ``m{i}_{j}``, ``m{i}_m{level}``): conv kernels HWIO ->
+OIHW (depthwise (3,3,1,C) -> (C,1,3,3)), dense (I,O) -> (O,I), BN
+``scale``/``bias`` -> ``weight``/``bias``,
+``batch_stats/.../mean``/``var`` -> ``running_mean``/``running_var``, and
+any other 1-D leaf (a weighted shortcut's ``l{i}_w``, the parametric
+activations' ``p1``, ``p2``, ``beta``) under its own name.
 ``variables_from_torch_state_dict`` is its inverse.
 """
 
@@ -97,7 +100,7 @@ def torch_state_dict_from_variables(
             arr, leaf = arr.T, "weight"                       # (I,O) -> (O,I)
         elif leaf == "scale":
             leaf = "weight"                                   # BN gamma
-        elif leaf != "bias":
+        elif leaf == "weight" or arr.ndim != 1:
             raise KeyError(f"unmapped parameter {key}")
         out[".".join(path + [leaf])] = torch.from_numpy(
             np.ascontiguousarray(arr))
@@ -128,7 +131,7 @@ def variables_from_torch_state_dict(
             arr, leaf = arr.T, "kernel"
         elif leaf == "weight":
             leaf = "scale"
-        elif leaf != "bias":
+        elif arr.ndim != 1:
             raise KeyError(f"unmapped tensor {name}")
         params["/".join(path + [leaf])] = np.ascontiguousarray(arr)
     return {"params": unflatten_tree(params),

@@ -1,12 +1,16 @@
-"""Small building blocks shared by the classifier family, NHWC in and out.
+"""Small building blocks shared by all model families, NHWC in and out.
 
-Counterpart of ``rtdm_tpu/models/layers.py``: ``Conv``, ``DepthwiseConv``,
-``BatchNorm`` (inference with running stats) and ``Dense``. Parameters
+Counterpart of ``rtdm_tpu/models/layers.py``: ``Conv`` (with groups),
+``DepthwiseConv``, ``BatchNorm`` (inference with running stats), ``Dense``
+and the parametric activations ``FReLU``, ``AconC`` and ``MetaAconC``, with
+the detectors' ``leaky_relu`` and ``silu`` rounded as the compiled JAX
+graphs round them in bf16. Parameters
 carry PyTorch's names and layouts (``weight`` OIHW or (O, I), ``bias``,
 ``running_mean``, ``running_var``), so a JAX variables tree maps onto them
-one leaf per tensor (``models/io.py``). Each layer computes in the dtype of
-its input, as the JAX layers cast their kernels to ``x.dtype``, and adds
-its bias after the product, in that dtype.
+one leaf per tensor (``models/io.py``). ``DepthwiseConv`` and ``Dense``
+compute in the dtype of their input, as the JAX layers cast their kernels
+to ``x.dtype``; ``Conv`` casts its input to its weight's dtype instead
+(see ``Conv``). Each adds its bias after the product, in that dtype.
 
 ``round_output = False`` (``Conv``, ``Dense``; set by the int8 engine on
 the layers its model names) leaves a bf16 layer's last step in fp32: the
@@ -49,7 +53,19 @@ def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
 
 
 class Conv(nn.Module):
-    """Conv2d with explicit torch-style padding/dilation/groups."""
+    """Conv2d with explicit torch-style padding/dilation/groups.
+
+    Computes in its weight's dtype: an input of another dtype is cast to it
+    first. An int8 detector hands a conv its SiLU product or residual sum
+    in fp32 where the compiled JAX graph holds bf16 (``keep_fp32``), so the
+    cast stands for the JAX layer's bf16 input; the classifiers' convs
+    always get their weight's dtype, so for them nothing changes.
+
+    A bf16 conv is a different call on each device, for the same function
+    (fp32 sums of exact products, rounded once): on the CPU an fp32 conv of
+    the bf16 values, as XLA:CPU compiles it; on the card cuDNN's bf16 conv.
+    The CPU tests hold the first against the JAX package; only
+    ``chip_smoke.py`` and the ``cuda`` tests reach the second."""
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: PairT = 3, stride: PairT = 1,
@@ -64,14 +80,17 @@ class Conv(nn.Module):
         self.round_output = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.weight.to(x.dtype)
-        if self.round_output or self.bias is not None:
-            y = conv2d(x, w, None, self.stride, self.padding, self.dilation,
-                       self.groups)
-            return _add_bias(y if self.round_output else y.float(),
-                             self.bias)
-        return conv2d(x.float(), w.float(), None, self.stride, self.padding,
-                      self.dilation, self.groups)
+        x = x.to(self.weight.dtype)
+        args = (None, self.stride, self.padding, self.dilation, self.groups)
+        if not (self.round_output or self.bias is not None):
+            return conv2d(x.float(), self.weight.float(), *args)
+        if x.dtype == torch.bfloat16 and not x.is_cuda:
+            # torch's fp32 conv sums as XLA:CPU's does where oneDNN's bf16
+            # conv does not
+            y = conv2d(x.float(), self.weight.float(), *args).to(x.dtype)
+        else:
+            y = conv2d(x, self.weight, *args)
+        return _add_bias(y if self.round_output else y.float(), self.bias)
 
 
 class DepthwiseConv(nn.Module):
@@ -111,11 +130,18 @@ class BatchNorm(nn.Module):
             raise NotImplementedError(
                 "BatchNorm runs at inference only; training is ported in a "
                 "later slice")
-        inv = torch.rsqrt(self.running_var.float() + self.epsilon) \
-            * self.weight.float()
-        out = (x.float() - self.running_mean.float()) * inv \
-            + self.bias.float()
-        return out.to(x.dtype)
+        return self.affine(x).to(x.dtype)
+
+    def affine(self, x: torch.Tensor) -> torch.Tensor:
+        """The fp32 result, before the cast to x's dtype, as the jitted JAX
+        ``BatchNorm`` computes it (read off its compiled HLO, fp32 and bf16
+        inputs alike): ``inv = rsqrt(var + eps) * scale`` per channel, then
+        ``fma(x - mean, inv, bias)`` in fp32. The per-channel rsqrt is taken
+        correctly rounded; XLA:CPU's own is within one ulp of it."""
+        var = self.running_var.float() + self.epsilon
+        inv = torch.rsqrt(var.double()).float() * self.weight.float()
+        return torch.addcmul(self.bias.float(),
+                             x.float() - self.running_mean.float(), inv)
 
 
 class Dense(nn.Module):
@@ -131,3 +157,78 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.nn.functional.linear(x, self.weight.to(x.dtype))
         return _add_bias(y if self.round_output else y.float(), self.bias)
+
+
+def leaky_relu(x: torch.Tensor, slope: float) -> torch.Tensor:
+    """``flax.linen.leaky_relu``: the slope in x's dtype (bf16(0.1) =
+    0.10009765625 for a bf16 x) and the product rounded to it."""
+    return torch.where(x >= 0, x, x * torch.tensor(slope, dtype=x.dtype))
+
+
+def silu(x: torch.Tensor, round_output: bool = True) -> torch.Tensor:
+    """``jax.nn.silu``, x * sigmoid(x). For a bf16 x the compiled JAX graph
+    rounds each step of the sigmoid to bf16 (exp(-x), + 1, the reciprocal)
+    and multiplies in fp32; ``round_output = False`` returns that fp32
+    product, as it stands where the next step (an int8 QDQ) reads it at
+    once."""
+    if x.dtype != torch.bfloat16:
+        return x * torch.sigmoid(x)
+    sig = 1.0 / (torch.exp(-x) + 1.0)
+    y = x.float() * sig.float()
+    return y.to(x.dtype) if round_output else y
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + exp(x)) as max(x, 0) + log1p(exp(-|x|))."""
+    return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
+
+
+class FReLU(nn.Module):
+    """Funnel activation max(x, BN(dwconv_kxk(x))), BN eps 1e-3."""
+
+    def __init__(self, channels: int, k: int = 3):
+        super().__init__()
+        self.conv = DepthwiseConv(channels, k, 1, padding=k // 2,
+                                  use_bias=False)
+        self.bn = BatchNorm(channels, epsilon=1e-3)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.maximum(x, self.bn(self.conv(x)))
+
+
+def _acon(x: torch.Tensor, p1, p2, beta) -> torch.Tensor:
+    xf = x.float()
+    dpx = (p1.float() - p2.float()) * xf
+    return (dpx * torch.sigmoid(beta * dpx) + p2.float() * xf).to(x.dtype)
+
+
+class AconC(nn.Module):
+    """ACON-C: (p1-p2)x * sigmoid(beta (p1-p2)x) + p2 x, per-channel p1, p2,
+    beta, in fp32."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.p1 = nn.Parameter(torch.randn(channels))
+        self.p2 = nn.Parameter(torch.randn(channels))
+        self.beta = nn.Parameter(torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _acon(x, self.p1, self.p2, self.beta.float())
+
+
+class MetaAconC(nn.Module):
+    """ACON-C with beta from two 1x1 convs over the spatial mean of x (no
+    BN), hidden width max(r, C // r)."""
+
+    def __init__(self, channels: int, r: int = 16):
+        super().__init__()
+        hidden = max(r, channels // r)
+        self.p1 = nn.Parameter(torch.randn(channels))
+        self.p2 = nn.Parameter(torch.randn(channels))
+        self.fc1 = Conv(channels, hidden, 1)
+        self.fc2 = Conv(hidden, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.float().mean((1, 2), keepdim=True)
+        y = self.fc2(self.fc1(y.to(self.fc1.weight.dtype)))
+        return _acon(x, self.p1, self.p2, torch.sigmoid(y.float()))

@@ -19,13 +19,13 @@ Two reducers:
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Dict
 
 import numpy as np
 import torch
 from torch import nn
 
+from rtdm_tpu_torch.core.precision import tf32
 from rtdm_tpu_torch.data.aider import normalize_batch
 from rtdm_tpu_torch.models.acff import layer_by_layer
 from rtdm_tpu_torch.models.layers import Conv, Dense, DepthwiseConv
@@ -77,20 +77,6 @@ def _entropy_threshold(absv: np.ndarray, amax: float, bins: int) -> float:
     return best_t
 
 
-@contextlib.contextmanager
-def _fp32_convs():
-    """TF32 off for cuDNN and cuBLAS inside the ``with``."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
-
-
 @torch.inference_mode()
 def calibrate_model(model: nn.Module, calib_images_u8: np.ndarray,
                     preprocess: Callable[[torch.Tensor], torch.Tensor],
@@ -116,7 +102,7 @@ def calibrate_model(model: nn.Module, calib_images_u8: np.ndarray,
         for name, mod in model.named_modules()
         if isinstance(mod, (Conv, DepthwiseConv, Dense))]
     try:
-        with _fp32_convs(), layer_by_layer(model):
+        with tf32(False), layer_by_layer(model):
             for start in range(0, calib_images_u8.shape[0], batch_size):
                 batch = torch.as_tensor(
                     calib_images_u8[start:start + batch_size]).to(device)

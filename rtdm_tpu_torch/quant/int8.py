@@ -1,4 +1,4 @@
-"""int8 (w8a8) quantize-dequantize classifier inference.
+"""int8 (w8a8) quantize-dequantize inference, classifiers and detectors.
 
 Counterpart of ``rtdm_tpu/quant/int8.py``:
 
@@ -11,7 +11,9 @@ Counterpart of ``rtdm_tpu/quant/int8.py``:
   Dense. The JAX package intercepts the flax modules' calls;
   ``quantize_classifier`` registers forward pre-hooks on the Conv and Dense
   layers the forward calls, and hands each ACFF block its four scales,
-  which the block's fused call applies (``ops/acff.py``).
+  which the block's fused call applies (``ops/acff.py``);
+  ``quantize_detector`` hooks every Conv, DepthwiseConv and Dense that has
+  a scale.
 
 QDQ semantics, so the numbers are an int8 engine's while the compute runs
 on the bf16 path. True int8 products (``int8_classifier_forward``) are not
@@ -113,16 +115,42 @@ def quantize_classifier(model: nn.Module, act_scales: Mapping[str, Any]
                 or name.rpartition(".")[0] in blocks):
             continue
         s: Optional[float] = scales.get(name.replace(".", "/"))
-        if s is None:
-            continue
-
-        def hook(m, args, s=s):
-            return (fake_quant_tensor(args[0].float(), s).to(
-                m.weight.dtype),) + args[1:]
-        handles.append(mod.register_forward_pre_hook(hook))
+        if s is not None:
+            handles.append(mod.register_forward_pre_hook(_qdq_hook(s)))
     for name in getattr(model, "UNROUNDED_IN_INT8", ()):
         model.get_submodule(name).round_output = False
     for mod in model.modules():
         if hasattr(mod, "sequential_pool"):
             mod.sequential_pool = True
+    return handles
+
+
+def _qdq_hook(scale: float):
+    def hook(m, args):
+        with torch.profiler.record_function("qdq"):
+            return (fake_quant_tensor(args[0].float(), scale).to(
+                m.weight.dtype),) + args[1:]
+    return hook
+
+
+def quantize_detector(model: nn.Module, act_scales: Mapping[str, Any]
+                      ) -> List[torch.utils.hooks.RemovableHandle]:
+    """Make a detector (parameters already QDQ'd and cast to bf16) an int8
+    QDQ model, as ``export/detector.py``'s JAX interceptor does: a forward
+    pre-hook on every Conv, DepthwiseConv and Dense whose JAX path (the
+    module name with '.' -> '/') has a scale QDQs its input in fp32 and
+    casts it to the layer's dtype. A v5 ConvBnSiLU and Bottleneck then
+    hand the next conv their SiLU product or residual sum in fp32
+    (``keep_fp32``), which the compiled JAX int8 program QDQs without
+    rounding it to bf16 first. Returns the hooks' handles."""
+    from rtdm_tpu_torch.models.layers import Conv, Dense, DepthwiseConv
+    from rtdm_tpu_torch.models.yolov5 import Bottleneck, ConvBnSiLU
+    scales = {k: float(np.float32(v)) for k, v in act_scales.items()}
+    handles = []
+    for name, mod in model.named_modules():
+        if isinstance(mod, (ConvBnSiLU, Bottleneck)):
+            mod.keep_fp32 = True
+        s = scales.get(name.replace(".", "/"))
+        if s is not None and isinstance(mod, (Conv, DepthwiseConv, Dense)):
+            handles.append(mod.register_forward_pre_hook(_qdq_hook(s)))
     return handles

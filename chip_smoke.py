@@ -80,7 +80,28 @@ non-zero exit, and the result line is printed only at the end:
      METRIC_TOL of the CPU port's, rect bucket shapes equal to the CPU's,
      images/s; yolo_detect ms/frame at batch 1 with and without the veto
      (median and p90 over TIMED_FRAMES frames after WARM_FRAMES);
-  8. one JSON line of kernels; then the last line, the result.
+  8. streaming, cascade and serving, from torch's TF32 defaults (cuDNN
+     TF32 on): rtdm-serve on 127.0.0.1 with a Squeeze_ErNET fp32 engine
+     and the yolov4-tiny-mini int8 detector, both endpoints driven at once
+     by run_load (SERVE_CLIENTS x SERVE_REQUESTS, PNG bodies of the
+     examples), every classify reply held to the lone direct fp32 call
+     (SERVE_PROB_TOL) and every detect reply equal to the direct Detector
+     call, a control that runs the fp32 model under tf32(True) and must
+     miss the fp32 logit gate, /stats, and run_direct's decode, handler and
+     core rates for the fp32, bf16 and int8 classifiers and the detector;
+     realtime_inference --engine squeeze-ernet_bf16 --power over the
+     examples looped to REALTIME_FRAMES at REALTIME_BATCHES, labels equal
+     to direct Engine calls on the same cv2-resized frames, FPS, ms/batch
+     and modelled mJ/frame at the card's power limit; cascade_stream in
+     bf16 and fp32 at 416 on the golden frames (yolov4-tiny-mini's cfg,
+     its seeded init checked against the golden's digest) against the
+     port on the CPU and tests/goldens/torch_port/cascade.npz
+     (CASCADE_REL_TOL, detections by compare_detections with
+     CASCADE_BOX_REL), 4 ACFF launches of the frame's precision a frame,
+     ms/frame median and p90; AutoShape over both detectors on the
+     examples as paths and arrays, equal to the Detector plus the
+     un-letterbox; the ACFF launches of every one of these paths;
+  9. one JSON line of kernels; then the last line, the result.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
 code 2 and no result without CUDA, or when run outside a checkout.
@@ -107,6 +128,7 @@ GOLDEN = ROOT / "tests" / "goldens" / "torch_port" / "classifier_logits.npz"
 GOLDEN_INT8 = GOLDEN.with_name("classifier_int8_logits.npz")
 GOLDEN_DET = GOLDEN.with_name("detector_int8.npz")
 GOLDEN_CLI = GOLDEN.with_name("detect_cli.npz")
+GOLDEN_CASCADE = GOLDEN.with_name("cascade.npz")
 DETECTORS = ("yolov4-tiny-mini_int8", "yolov5s-mini_int8")
 CONV_KERNEL = re.compile(r"conv|cudnn|xmma|implicit|gemm|sm90_|sm80_",
                          re.IGNORECASE)
@@ -180,6 +202,26 @@ BIAS_TOL = 1e-7
 # below the smallest top-2 margin of the JAX int8 logits on the golden
 # frames (2.9% of max |logit|, ErNET); the port on the CPU is bit-exact.
 LOGIT_REL_TOL = {"fp32": 1e-4, "bf16": 2e-2, "int8": 3e-2}
+# phase 8: rtdm-serve's load (clients x sequential requests each, both
+# endpoints at once); a served fp32 reply against the lone direct call,
+# relative to max |prob| (bit-equal where a row does not depend on the
+# batch it rode in); realtime_inference's batches; the cascade's
+# probabilities against the CPU port and the JAX golden, relative to max
+# |prob| (tests/test_torch_streaming.py), and its timed frames after the
+# warm-up
+SERVE_CLIENTS = 16
+SERVE_REQUESTS = 8
+SERVE_PROB_TOL = 1e-6
+REALTIME_BATCHES = (1, 8)
+REALTIME_FRAMES = 100   # the examples looped: FPS past the loop's start
+CASCADE_REL_TOL = {"fp32": 1e-4, "bf16": 2e-2}
+# the cascade's detector has random weights, whose boxes are not on the
+# scale of the frame: in bf16 a corner may move this share of the box's
+# longer side beyond BOX_PX (a bf16 rounding flip moves one by up to 4.4%:
+# tests/test_torch_detector.py BOX_REL); fp32 none
+CASCADE_BOX_REL = {"fp32": 0.0, "bf16": 0.06}
+CASCADE_WARM = 5
+CASCADE_TIMED = 50
 # act_scales calibrated on the card against the port on the CPU
 # (tests/test_torch_quant.py holds the port's against JAX's)
 CALIB_RTOL = {"percentile": 1e-4, "entropy": 1e-2}
@@ -233,6 +275,37 @@ def graph_ms(fn, iters: int) -> float:
     ms = cuda_ms(graph.replay, 3) / iters
     del graph
     return ms
+
+
+def _count_from_zero():
+    """Set every ACFF launch count to 0."""
+    from rtdm_tpu_torch.ops.acff import ACFF_KERNEL, LAUNCHES
+    ACFF_KERNEL.launches = 0
+    LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+
+
+def _only(kind, n):
+    """The launch counts of a run that launched ``n`` of ``kind`` only."""
+    from rtdm_tpu_torch.ops.acff import LAUNCHES
+    return {k: n if k == kind else 0 for k in LAUNCHES}
+
+
+def _read_launches(path, launches, want=None):
+    """Record the launches counted since ``_count_from_zero`` under
+    ``path``; fail unless they are ``want`` (if given)."""
+    from rtdm_tpu_torch.ops.acff import ACFF_KERNEL, LAUNCHES
+    got = dict(LAUNCHES)
+    launches[path] = got
+    if want is not None and (got != want or ACFF_KERNEL.launches
+                             != sum(want.values())):
+        raise AssertionError(f"{path}: ACFF launches {got}, expected {want}")
+    return got
+
+
+def _percentiles(ms):
+    """(median, p90) of the samples."""
+    ms = sorted(ms)
+    return ms[(len(ms) - 1) // 2], ms[int(0.9 * len(ms)) - 1]
 
 
 def tensor_core_instructions(lib: Path) -> dict:
@@ -637,8 +710,7 @@ def phase_end_to_end(frames, golden, golden_int8):
 
     def counted(path, n_blocks, eng, x):
         quant = eng.spec.normalized_quant()
-        ACFF_KERNEL.launches = 0
-        LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+        _count_from_zero()
         out = eng(x)
         launches[path] = LAUNCHES[quant]
         want = {q: n_blocks if q == quant else 0 for q in LAUNCHES}
@@ -854,9 +926,7 @@ def detector_latency(det, x, card, label):
         t0 = time.perf_counter()
         det(x)               # ends in a device-to-host copy: synchronised
         samples.append((time.perf_counter() - t0) * 1e3)
-    samples.sort()
-    med, p90 = samples[(len(samples) - 1) // 2], \
-        samples[int(0.9 * len(samples)) - 1]
+    med, p90 = _percentiles(samples)
     say(f"latency {label} batch {len(x)}: median {med:.4f} ms, p90 "
         f"{p90:.4f} ms (n=100, host clock); peak memory "
         f"{torch.cuda.max_memory_allocated()} B [{card}]")
@@ -939,8 +1009,7 @@ def phase_detection(card):
         load_s = time.perf_counter() - t0
         b = det.batch_size
         x = np.resize(frames, (b,) + frames.shape[1:])
-        ACFF_KERNEL.launches = 0
-        LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+        _count_from_zero()
         got = det(x)
         acff = ACFF_KERNEL.launches + sum(LAUNCHES.values())
         steps = det.stats["greedy_steps"]
@@ -1201,8 +1270,7 @@ def phase_detect_cli(card, work):
                 for i in range(len(frames)))]), range(len(frames)))
 
     def counted(path, fn, *args, **kwargs):
-        ACFF_KERNEL.launches = 0
-        LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+        _count_from_zero()
         out = fn(*args, **kwargs)
         launches[path] = dict(LAUNCHES)
         return out
@@ -1336,14 +1404,367 @@ def phase_detect_cli(card, work):
         for classify in (False, True):
             _, printed = detect(engine, "cuda", f"{engine}_timed",
                                 classify=classify, source=timed)
-            ms = sorted(_frame_ms(printed)[WARM_FRAMES:])
-            med, p90 = ms[(len(ms) - 1) // 2], ms[int(0.9 * len(ms)) - 1]
+            ms = _frame_ms(printed)[WARM_FRAMES:]
+            med, p90 = _percentiles(ms)
             label = f"yolo_detect {engine}" + (" --classify" if classify
                                                else "")
             say(f"{label}: {med} ms/frame median, {p90} p90 at batch 1 "
                 f"(n={len(ms)}, host clock) [{card}]")
             records[label + " ms"] = {"median": med, "p90": p90,
                                       "frames": len(ms)}
+    return records, launches
+
+
+def _png_bodies(paths):
+    """The images re-encoded as PNG bytes (the port decodes every body
+    with PIL; PNG keeps the JPEG's decoded pixels)."""
+    import io
+    from PIL import Image
+    out = []
+    for p in paths:
+        buf = io.BytesIO()
+        with Image.open(p) as im:
+            im.convert("RGB").save(buf, format="PNG")
+        out.append(buf.getvalue())
+    return out
+
+
+def phase_serve(card, work, launches):
+    """Phase 8a: rtdm-serve with an fp32 classifier and an int8 detector
+    side by side, both driven at once; each reply held to the lone direct
+    call; the TF32 control; run_direct for each engine."""
+    import threading
+    from rtdm_tpu_torch.cli.serve import (_ClassifyService, _DetectService,
+                                          classify_frame, detect_frame,
+                                          detections_to_json, make_server)
+    from rtdm_tpu_torch.cli.serve_loadtest import run_direct, run_load
+    from rtdm_tpu_torch.core.precision import tf32
+    from rtdm_tpu_torch.data.aider import normalize_batch
+    from rtdm_tpu_torch.export.engine import Engine
+    from rtdm_tpu_torch.models.ernet import CLASS_NAMES
+    examples = sorted((ROOT / "docs" / "examples").glob("*.jpg"))
+    bodies = _png_bodies(examples)
+    loaded = Engine.load(str(ENGINES / "squeeze-ernet_bf16"))
+    fp32_dir = str(work / "squeeze-ernet_fp32")
+    Engine(dataclasses.replace(loaded.spec, quant="fp32"),
+           loaded.variables).save(fp32_dir)
+    classify = _ClassifyService(fp32_dir, 2.0, 2)
+    detect = _DetectService(str(ENGINES / DETECTORS[0]), 2.0, 2)
+    server = make_server(0, classify, detect, host="127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    replies = {"/v1/classify": [], "/v1/detect": []}
+    load = {}
+
+    def drive(endpoint):
+        load[endpoint] = run_load(url, endpoint, SERVE_CLIENTS,
+                                  SERVE_REQUESTS, timeout=120.0,
+                                  bodies=bodies, responses=replies[endpoint])
+
+    try:
+        _count_from_zero()
+        loads = [threading.Thread(target=drive, args=(e,)) for e in replies]
+        for t in loads:
+            t.start()
+        for t in loads:
+            t.join(600)
+        if any(t.is_alive() for t in loads):
+            raise AssertionError("serve: a load thread did not finish")
+        stats = {"classify": classify.batcher.stats().as_dict(),
+                 "detect": detect.batcher.stats().as_dict()}
+        path = (f"rtdm-serve classify fp32 ({stats['classify']['batches']} "
+                f"batches beside the int8 detector)")
+        _read_launches(path, launches,
+                       _only("fp32", 4 * stats["classify"]["batches"]))
+    finally:
+        server.shutdown()
+        server.server_close()
+        classify.batcher.close()
+        detect.batcher.close()
+        thread.join(30)
+    n = SERVE_CLIENTS * SERVE_REQUESTS
+    for endpoint, res in load.items():
+        if res["errors"] or res["requests"] != n or \
+                len(replies[endpoint]) != n:
+            raise AssertionError(f"serve {endpoint}: {res}")
+    # each reply against the lone direct call, no other thread running
+    frames = [classify_frame(b, classify.size) for b in bodies]
+    direct = [classify.engine(f[None])[0] for f in frames]
+    worst, bit_equal = 0.0, 0
+    for k, reply in replies["/v1/classify"]:
+        p = np.array(list(reply["probs"].values()), np.float32)
+        err = float(np.abs(p - direct[k]).max())
+        bit_equal += int(np.array_equal(p, direct[k]))
+        worst = max(worst, err / float(np.abs(direct[k]).max()))
+        if err > SERVE_PROB_TOL * np.abs(direct[k]).max() or \
+                reply["label"] != CLASS_NAMES[int(direct[k].argmax())]:
+            raise AssertionError(f"serve classify: body {k} reply differs "
+                                 f"from the lone fp32 call by {err}")
+    say(f"serve classify fp32 beside int8 detect: {bit_equal}/{n} replies "
+        f"bit-equal to the lone direct call, max |dprob| {worst:.3e} of "
+        f"max|prob| (limit {SERVE_PROB_TOL})")
+    # the control: the same model with TF32 on misses the fp32 gate
+    eng = classify.engine
+    x = torch.as_tensor(np.stack(frames), device=eng.device)
+    with torch.inference_mode():
+        xn = normalize_batch(x, eng._mean, eng._std)
+        with tf32(False):
+            ref = eng.model(xn, apply_softmax=False).float().cpu().numpy()
+        with tf32(True):
+            ctl = eng.model(xn, apply_softmax=False).float().cpu().numpy()
+    ctl_err = float(np.abs(ctl - ref).max() / np.abs(ref).max())
+    say(f"serve control: the fp32 model under tf32(True): max |dlogit| "
+        f"{ctl_err:.3e} of max|logit| (fp32 gate {LOGIT_REL_TOL['fp32']}: "
+        f"must miss it)")
+    if ctl_err <= LOGIT_REL_TOL["fp32"]:
+        raise AssertionError("serve control: TF32 did not move the fp32 "
+                             "logits past the gate; the check cannot fail")
+    det_equal = 0
+    for k, reply in replies["/v1/detect"]:
+        boxed, gain, pads, orig_hw = detect_frame(bodies[k], detect.size)
+        d, c = detect.det(boxed[None])
+        want = detections_to_json(d[0], int(c[0]), gain, pads, orig_hw,
+                                  detect.names)
+        if reply != want:
+            raise AssertionError(f"serve detect: body {k} reply differs "
+                                 f"from the direct Detector call")
+        det_equal += 1
+    say(f"serve detect int8 beside fp32 classify: {det_equal}/{n} replies "
+        f"equal to the direct Detector call + detections_to_json")
+    record = {"load": {e.split("/")[-1]: r for e, r in load.items()},
+              "stats": stats, "classify_bit_equal": bit_equal,
+              "classify_max_rel": worst, "tf32_control_rel": ctl_err}
+    for e, r in load.items():
+        s = stats[e.split("/")[-1]]
+        say(f"serve {e} under load ({SERVE_CLIENTS} clients x "
+            f"{SERVE_REQUESTS}, both endpoints at once): {r['rps']} rps, "
+            f"client p50 {r['p50_ms']} ms p99 {r['p99_ms']} ms; batcher "
+            f"mean_batch {s['mean_batch']:.2f} of {s['batches']} batches, "
+            f"rows_padded {s['rows_padded']}, p50 {s['p50_ms']:.2f} ms p99 "
+            f"{s['p99_ms']:.2f} ms [{card}]")
+    # handler-direct capacity of each engine, alone
+    direct_runs = {"classify fp32": {"engine_dir": fp32_dir},
+                   "classify bf16": {"engine_dir": str(
+                       ENGINES / "squeeze-ernet_bf16")},
+                   "classify int8": {"engine_dir": str(
+                       ENGINES / "squeeze-ernet_int8")},
+                   "detect int8": {"detector_dir": str(
+                       ENGINES / DETECTORS[0])}}
+    record["direct"] = {}
+    for label, kw in direct_runs.items():
+        _count_from_zero()
+        res = run_direct(clients=SERVE_CLIENTS,
+                         requests_per_client=SERVE_REQUESTS, **kw)
+        got = _read_launches(f"serve_loadtest --direct {label}", launches)
+        kind = label.split()[1] if label.startswith("classify") else None
+        if (kind and (got[kind] % 4 or not got[kind]
+                      or sum(got.values()) != got[kind])) or \
+                (not kind and sum(got.values())) or \
+                res["handler"]["errors"] or res["core"]["errors"]:
+            raise AssertionError(f"run_direct {label}: {res}, launches "
+                                 f"{got}")
+        record["direct"][label] = res
+        say(f"run_direct {label}: decode {res['decode_ms']} ms; handler "
+            f"{res['handler']['rps']} rps (p99 {res['handler']['p99_ms']} "
+            f"ms), core {res['core']['rps']} rps (p99 "
+            f"{res['core']['p99_ms']} ms), mean batch "
+            f"{res['batcher_mean_batch']:.2f}; ACFF launches {got} [{card}]")
+    return record
+
+
+def phase_realtime(card, launches):
+    """Phase 8b: realtime_inference on the bf16 engine over the examples."""
+    import cv2
+    from rtdm_tpu_torch.cli.aider_predict import load_image_rgb
+    from rtdm_tpu_torch.cli.realtime_inference import main as realtime
+    from rtdm_tpu_torch.export.engine import Engine
+    examples = sorted((ROOT / "docs" / "examples").glob("*.jpg"))
+    engine_dir = str(ENGINES / "squeeze-ernet_bf16")
+    resized = np.stack([cv2.resize(load_image_rgb(str(p)), (140, 140),
+                                   interpolation=cv2.INTER_LINEAR)
+                        for p in examples])
+    direct = Engine.load(engine_dir)(resized)
+    want = [(int(p.argmax()), float(p.max())) for p in direct]
+    records = {}
+    want = [want[k % len(want)] for k in range(REALTIME_FRAMES)]
+    for b in REALTIME_BATCHES:
+        _count_from_zero()
+        report, _ = _quiet(realtime, ["--source", str(examples[0].parent),
+                                      "--video-looping", "--max-frames",
+                                      str(REALTIME_FRAMES), "--engine",
+                                      engine_dir, "--batch", str(b),
+                                      "--power"])
+        batches = -(-REALTIME_FRAMES // b)
+        _read_launches(f"realtime_inference bf16 --batch {b} "
+                       f"({REALTIME_FRAMES} frames)", launches,
+                       _only("bf16", 4 * batches))
+        if report["frames"] != REALTIME_FRAMES or \
+                report["predictions"] != want:
+            raise AssertionError(f"realtime --batch {b}: labels differ from "
+                                 f"the direct Engine calls")
+        records[b] = {k: report[k] for k in (
+            "fps_avg", "fps_min", "fps_max", "ms_per_batch", "mj_per_frame",
+            "chip_watts")}
+        say(f"realtime_inference bf16 --batch {b}: labels equal the direct "
+            f"Engine calls; FPS avg {report['fps_avg']:.1f} min "
+            f"{report['fps_min']:.1f} max {report['fps_max']:.1f}, "
+            f"{report['ms_per_batch']:.3f} ms/batch, "
+            f"{report['mj_per_frame']:.3f} mJ/frame modelled at "
+            f"{report['chip_watts']} W; bf16 ACFF launches "
+            f"{4 * batches} [{card}]")
+    return records
+
+
+def phase_cascade(card, work, launches):
+    """Phase 8c: the cascade at 416 in bf16 and fp32 on the golden frames,
+    against the port on the CPU and the JAX golden, and timed."""
+    from rtdm_tpu_torch.cli.cascade_stream import build_cascade
+    from rtdm_tpu_torch.eval.detection import (candidates, compare_detections,
+                                               per_frame, summary)
+    from rtdm_tpu_torch.export.detector import load_detection_model
+    from rtdm_tpu_torch.models.io import tree_digest
+    with np.load(GOLDEN_CASCADE) as g:
+        gold = dict(g)
+    with np.load(GOLDEN_DET) as g:
+        frames = g["frames_416"]
+    cfg = work / "yolov4-tiny-mini.cfg"
+    cfg.write_text((ENGINES / DETECTORS[0] / "model.txt").read_text())
+    digest = tree_digest(load_detection_model(str(cfg), None, 416)[1])
+    if digest != str(gold["det_weights_digest"]):
+        raise AssertionError("cascade: the seeded detector init differs from "
+                             "the golden's weights")
+    conf, iou = float(gold["conf_thres"]), float(gold["iou_thres"])
+    records = {}
+
+    def run(cascade, count_path=None):
+        """The cascade on each frame, its launches counted from 0 for each
+        and summed under ``count_path`` (4 of its precision a frame)."""
+        out, cands, total = [], [], _only(quant, 0)
+        for i in range(len(frames)):
+            if count_path:
+                _count_from_zero()
+            probs, det, count = cascade(frames[i:i + 1])
+            out.append((probs.cpu().numpy(), det.cpu().numpy(),
+                        count.cpu().numpy()))
+            if count_path:
+                got = _read_launches(f"{count_path} frame {i}", {},
+                                     _only(quant, 4))
+                total = {k: total[k] + got[k] for k in total}
+            with torch.inference_mode():
+                pred = cascade.detector.decoded(
+                    cascade.detector._upload(frames[i:i + 1])[0])
+            cands.append(candidates(pred.float().cpu().numpy(), conf)[0])
+        if count_path:
+            launches[count_path] = total
+        return [np.concatenate([o[k] for o in out]) for k in range(3)] + \
+            [cands]
+
+    for quant in ("bf16", "fp32"):
+        args = (str(cfg), None, VETO[0], str(VETO[1]), 416, conf, iou, quant)
+        on_card = build_cascade(*args)
+        got = run(on_card, f"cascade_stream {quant} ({len(frames)} frames "
+                           f"at 416)")
+        ref = {"cpu_port": run(build_cascade(*args, device="cpu")),
+               "jax_golden": [gold[f"probs_{quant}"], gold[f"det_{quant}"],
+                              gold[f"count_{quant}"],
+                              per_frame(gold[f"cand_{quant}"],
+                                        range(len(frames)))]}
+        rec = {}
+        for who, want in ref.items():
+            err = float(np.abs(got[0] - want[0]).max()
+                        / np.abs(want[0]).max())
+            rep = compare_detections(want[1], want[2], got[1], got[2], conf,
+                                     iou, want[3], got[3],
+                                     box_rel=CASCADE_BOX_REL[quant])
+            say(f"cascade {quant} card vs {who}: probs max |d| {err:.3e} of "
+                f"max|prob| (limit {CASCADE_REL_TOL[quant]}), argmax equal "
+                f"{np.array_equal(got[0].argmax(1), want[0].argmax(1))}; "
+                f"detections {summary(rep)}")
+            if not (err <= CASCADE_REL_TOL[quant] and rep["ok"] and
+                    np.array_equal(got[0].argmax(1), want[0].argmax(1))):
+                raise AssertionError(f"cascade {quant} card vs {who}: "
+                                     f"{err}, {rep['failures']}")
+            rec[who] = {"probs_rel": err, **{f: rep[f] for f in (
+                "bit_equal_frames", "count_equal_frames", "matched",
+                "detections", "max_box_px", "max_conf_diff")}}
+        ms = []
+        for k in range(CASCADE_WARM + CASCADE_TIMED):
+            t0 = time.perf_counter()
+            probs, det, count = on_card(frames[k % len(frames)][None])
+            probs.cpu(), det.cpu(), count.cpu()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        med, p90 = _percentiles(ms[CASCADE_WARM:])
+        rec.update(ms_median=med, ms_p90=p90, frames=CASCADE_TIMED)
+        records[quant] = rec
+        say(f"cascade_stream {quant} at 416, batch 1: {med:.3f} ms/frame "
+            f"median, {p90:.3f} p90 (n={CASCADE_TIMED}, host clock); "
+            f"{quant} ACFF launches 4 a frame [{card}]")
+    return records
+
+
+def phase_autoshape(launches):
+    """Phase 8d: AutoShape over both detectors on the examples, as paths
+    and as arrays, equal to the Detector plus the un-letterbox."""
+    from rtdm_tpu_torch.cli.aider_predict import load_image_rgb
+    from rtdm_tpu_torch.data.odder import letterbox_image
+    from rtdm_tpu_torch.export.autoshape import AutoShape
+    paths = [str(p) for p in sorted((ROOT / "docs" / "examples")
+                                    .glob("*.jpg"))]
+    arrays = [load_image_rgb(p) for p in paths]
+    records = {}
+    for name in DETECTORS:
+        auto = AutoShape(str(ENGINES / name))
+        _count_from_zero()
+        results = [auto(paths), auto(arrays)]
+        _read_launches(f"AutoShape {name}", launches, _only("bf16", 0))
+        det, size = auto.detector, auto.detector.spec.img_size
+        boxed = [letterbox_image(a, size) for a in arrays]
+        want = []
+        for start in range(0, len(boxed), det.batch_size):
+            chunk = boxed[start:start + det.batch_size]
+            d, c = det(np.stack([b[0] for b in chunk]))
+            for j, (_, gain, (pw, ph)) in enumerate(chunk):
+                h, w = arrays[start + j].shape[:2]
+                rows = np.array(d[j][:int(c[j])], np.float32)
+                if rows.size:
+                    rows[:, [0, 2]] = ((rows[:, [0, 2]] - pw) / gain
+                                       ).clip(0, w)
+                    rows[:, [1, 3]] = ((rows[:, [1, 3]] - ph) / gain
+                                       ).clip(0, h)
+                want.append(rows)
+        for res in results:
+            if len(res) != len(paths) or not all(
+                    np.array_equal(g, w) for g, w in zip(res.xyxy, want)):
+                raise AssertionError(f"AutoShape {name}: results differ from "
+                                     f"the Detector + un-letterbox")
+        records[name] = sum(len(w) for w in want)
+        say(f"AutoShape {name}: paths and arrays equal the Detector + "
+            f"un-letterbox on {len(paths)} examples ({records[name]} "
+            f"detections); no ACFF launch")
+    return records
+
+
+def phase_serving(card, work):
+    """Phase 8: streaming, cascade and serving, from torch's TF32 defaults
+    (cuDNN TF32 on), so that what is tested is each path's own setting.
+    Returns the records and, by path, the ACFF launches."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = {}
+    t0 = time.perf_counter()
+    try:
+        records = {"serve": phase_serve(card, work, launches),
+                   "realtime": phase_realtime(card, launches),
+                   "cascade": phase_cascade(card, work, launches),
+                   "autoshape": phase_autoshape(launches)}
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+    records["seconds"] = time.perf_counter() - t0
+    say(f"phase 8: {records['seconds']:.1f} s")
     return records, launches
 
 
@@ -1420,7 +1841,10 @@ def main() -> int:
     work.mkdir(parents=True)
     cli_records, cli_launches = phase_detect_cli(card, work)
 
-    # 8. kernels line: one entry a kernel (the QDQ mode of the bf16 kernel
+    # 8. streaming, cascade and serving
+    serving, serving_launches = phase_serving(card, work)
+
+    # 9. kernels line: one entry a kernel (the QDQ mode of the bf16 kernel
     # its own), summed over the ACFF blocks of one forward of its main path
     # (the Squeeze_ErNET engine of its precision), launches counted in that
     # forward; the bf16 kernel's entry also lists the veto's launches in
@@ -1454,6 +1878,8 @@ def main() -> int:
                 **{p: n for p, n in launches.items()
                    if p.split("/")[1].startswith(quant)},
                 **{p: n[quant] for p, n in cli_launches.items()
+                   if n[quant]},
+                **{p: n[quant] for p, n in serving_launches.items()
                    if n[quant]}},
             "per_shape": [r for r in records if r["quant"] == quant],
         })
@@ -1501,6 +1927,8 @@ def main() -> int:
         f"{q} {v:.4f} ms" for q, v in sums.items()) + f" [{card}]")
     say("detection: " + json.dumps(detection))
     say("detection CLIs: " + json.dumps(cli_records))
+    say("streaming, cascade and serving: " + json.dumps(serving))
+    say("ACFF launches on phase 8's paths: " + json.dumps(serving_launches))
     say(f"fault 2: {len(fault2_rows)} shapes x modes held to the plain "
         f"version")
     say(f"total {time.perf_counter() - t_start:.1f} s")

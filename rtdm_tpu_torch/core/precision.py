@@ -9,6 +9,7 @@ true fp16 engine does not exist in either package.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Dict, Mapping
 
 import torch
@@ -30,16 +31,26 @@ def cast_floating(tensors: Mapping[str, torch.Tensor],
             for k, v in tensors.items()}
 
 
+# TF32 is one setting for the whole process; the lock keeps two threads
+# (two engines served side by side) from running inside each other's
+# setting. Re-entrant: a TTA detector nests sections.
+_TF32_LOCK = threading.RLock()
+
+
 @contextlib.contextmanager
 def tf32(on: bool):
-    """TF32 for cuDNN and cuBLAS set to ``on`` inside the ``with``; the
-    previous setting is restored after it."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = on
-    torch.backends.cuda.matmul.allow_tf32 = on
-    try:
-        yield
-    finally:
-        (torch.backends.cudnn.allow_tf32,
-         torch.backends.cuda.matmul.allow_tf32) = saved
+    """TF32 for cuDNN and cuBLAS set to ``on`` inside the ``with``, which
+    holds a process-wide lock, so no other thread runs under another
+    setting meanwhile; the previous setting is restored after it. On the
+    card the body enqueues launches: the lock is not held while their
+    results are awaited, unless the body waits for them itself."""
+    with _TF32_LOCK:
+        saved = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = on
+        torch.backends.cuda.matmul.allow_tf32 = on
+        try:
+            yield
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = saved

@@ -309,6 +309,13 @@ class _MultiSource(FrameSource):
         super().stop()
 
 
+def is_live_source(source: str) -> bool:
+    """A webcam id, a network stream or a .streams list: a source that may
+    never end, whose loop must keep no per-frame state."""
+    return source.isdigit() or source.startswith(
+        ("rtsp://", "http://", "https://")) or source.endswith(".streams")
+
+
 def is_gst_pipeline(uri: str) -> bool:
     """A raw GStreamer pipeline: explicit gst:// prefix, or an
     element-chain string (' ! ' separators ending in an appsink — the

@@ -9,14 +9,16 @@ fewer frames are zero-padded up to ``spec.batch_size``, more raise.
 
 Precisions: fp32, bf16 ('fp16'/'half' are aliases of bf16, as in the
 JAX package) and int8. In bf16 only the parameters are cast; BatchNorm
-running statistics stay fp32. An fp32 engine turns TF32 off for cuDNN and
-cuBLAS, which would otherwise keep about three digits. int8 is the JAX
-package's QDQ engine (``quant/int8.py``): kernels QDQ'd per output channel
-on the JAX-layout tree, then cast to bf16; activations QDQ'd with the
-calibrated ``act_scales`` at every conv and dense input, inside the ACFF
-blocks by the bf16 kernel's QDQ mode. ``build_engine`` calibrates an int8
-engine on the frames it is given (``quant/calibrate.py``). Not ported:
-``mesh`` (multi-GPU) and ``exec_cache`` (serialized XLA executables).
+running statistics stay fp32. An fp32 engine enqueues each forward with
+TF32 off for cuDNN and cuBLAS, which would otherwise keep about three
+digits, under ``core/precision.py::tf32``'s lock, whatever other threads
+set meanwhile. int8 is the JAX package's QDQ engine (``quant/int8.py``):
+kernels QDQ'd per output channel on the JAX-layout tree, then cast to
+bf16; activations QDQ'd with the calibrated ``act_scales`` at every conv
+and dense input, inside the ACFF blocks by the bf16 kernel's QDQ mode.
+``build_engine`` calibrates an int8 engine on the frames it is given
+(``quant/calibrate.py``). Not ported: ``mesh`` (multi-GPU) and
+``exec_cache`` (serialized XLA executables).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import torch
 
 from rtdm_tpu_torch.core.device import resolve_device
 from rtdm_tpu_torch.core.precision import (ENGINE_DTYPES, cast_floating,
-                                           normalized_quant)
+                                           normalized_quant, tf32)
 from rtdm_tpu_torch.data.aider import (IMAGENET_MEAN, IMAGENET_STD,
                                        normalize_batch)
 from rtdm_tpu_torch.models.ernet import create_model, input_size_for
@@ -74,9 +76,6 @@ class Engine:
         self.act_scales = act_scales
         self.device = resolve_device(device)
         self.dtype = ENGINE_DTYPES[quant]
-        if quant == "fp32":
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
         if quant == "int8":
             variables = {**variables,
                          "params": quantize_params(variables["params"])}
@@ -100,6 +99,12 @@ class Engine:
                              f"{frames.dtype} {tuple(frames.shape)}")
         x = torch.zeros((b, s, s, 3), dtype=torch.uint8, device=self.device)
         x[:n].copy_(frames)
+        if self.dtype != torch.float32:   # bf16 convs take no TF32
+            return self._forward(x)
+        with tf32(False):
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         x = normalize_batch(x, self._mean, self._std).to(self.dtype)
         return self.model(x, apply_softmax=self.spec.with_softmax).float()
 

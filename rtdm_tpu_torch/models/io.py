@@ -3,7 +3,8 @@
 Counterpart of ``rtdm_tpu/models/io.py`` for ``.npz`` archives (flat
 ``collection/path/to/leaf`` -> array): ``flatten_tree``, ``unflatten_tree``,
 ``save_variables``, ``load_variables`` (with sealed ``<leaf>.q`` int8 codes
-and ``<leaf>.s`` scales dequantized) and ``infer_num_classes``.
+and ``<leaf>.s`` scales dequantized) and ``infer_num_classes``;
+``tree_digest`` names a tree's contents.
 
 ``torch_state_dict_from_variables`` carries a variables tree onto the port's
 modules, whose submodules are named as the tree is (``conv1``,
@@ -44,6 +45,18 @@ def unflatten_tree(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[parts[-1]] = val
     return tree
+
+
+def tree_digest(tree: Any) -> str:
+    """sha256 of a tree's leaves (keys, dtypes, shapes and bytes, in key
+    order): equal for equal trees, wherever they were made."""
+    import hashlib
+    h = hashlib.sha256()
+    for key, val in sorted(flatten_tree(tree).items()):
+        val = np.ascontiguousarray(val)
+        h.update(f"{key}:{val.dtype.str}:{val.shape};".encode())
+        h.update(val.tobytes())
+    return h.hexdigest()
 
 
 def save_variables(path: str, variables: Dict[str, Any]) -> str:

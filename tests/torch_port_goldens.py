@@ -19,14 +19,24 @@ detection CLIs on the committed detector engines (``make_cli_golden``):
 ``yolo_detect --engine`` rows on ``docs/examples`` with and without the
 ``--classify`` veto and the veto classifier's logits of each row, TTA
 detections and candidates, and ``yolo_test`` metrics on the labelled
-example set (``rtdm_tpu_torch/data/example_set.py``).
+example set (``rtdm_tpu_torch/data/example_set.py``); and
+``tests/goldens/torch_port/cascade.npz``: the JAX ``build_cascade``
+(``rtdm_tpu/cli/cascade_stream.py``) on ``frames_416`` of
+``detector_int8.npz``, one frame a call, in fp32 and bf16
+(``probs_<q>``, ``det_<q>``, ``count_<q>`` and its NMS candidates
+``cand_<q>``) at ``conf_thres`` and ``iou_thres``, with the cfg text of
+the committed yolov4-tiny-mini engine, detector weights from the port's
+seeded init (``init_darknet``, seed ``CASCADE_SEED``, what the port's
+``load_detection_model`` gives without weights, so a run on the card
+makes them again without JAX; their ``tree_digest`` is stored) and
+Squeeze_ErNET from ``artifacts/engines/squeeze-ernet_bf16/params.npz``.
 ``chip_smoke.py`` reads the files as plain data, which holds a run on the
-card against the reference without JAX there; ``tests/test_torch_engine.py``
-and ``tests/test_torch_detector.py`` regenerate them in memory and check
-that they are current.
+card against the reference without JAX there; ``tests/test_torch_engine.py``,
+``tests/test_torch_detector.py`` and ``tests/test_torch_streaming.py``
+regenerate them in memory and check that they are current.
 
 Regenerate: JAX_PLATFORMS=cpu python -m tests.torch_port_goldens
-[classifier|detector|cli] (all without an argument)
+[classifier|detector|cli|cascade] (all without an argument)
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -43,6 +54,7 @@ GOLDEN = ROOT / "tests" / "goldens" / "torch_port" / "classifier_logits.npz"
 GOLDEN_INT8 = GOLDEN.with_name("classifier_int8_logits.npz")
 GOLDEN_DET = GOLDEN.with_name("detector_int8.npz")
 GOLDEN_CLI = GOLDEN.with_name("detect_cli.npz")
+GOLDEN_CASCADE = GOLDEN.with_name("cascade.npz")
 VETO = ("squeeze-ernet",
         str(ROOT / "artifacts" / "engines" / "squeeze-ernet_bf16" /
             "params.npz"))
@@ -57,6 +69,15 @@ DETECTOR_SIZE = 416
 MODELS = ("squeeze-ernet", "squeeze-redconv", "ernet")
 EXAMPLES = tuple(sorted((ROOT / "docs" / "examples").glob("*.jpg")))
 GOLDEN_BATCH = 16
+# the cascade: the cfg text of this engine, the port's init at this seed
+# (random weights), the threshold at which every frame has detections
+# (NMS keeps rows with objectness over it), the classifier's weights
+CASCADE_ENGINE = "yolov4-tiny-mini_int8"
+CASCADE_SEED = 0
+CASCADE_CONF = 0.65
+CASCADE_IOU = 0.45
+CASCADE_QUANTS = ("fp32", "bf16")
+CASCADE_CLS = ("squeeze-ernet", VETO[1])
 
 
 def image_size(model: str) -> int:
@@ -325,9 +346,69 @@ def make_golden() -> dict:
     return out
 
 
+def cascade_cfg(directory: str) -> str:
+    """The committed yolov4-tiny-mini engine's cfg text, as a .cfg file in
+    ``directory``."""
+    path = os.path.join(directory, "yolov4-tiny-mini.cfg")
+    Path(path).write_text(
+        (ROOT / "artifacts" / "engines" / CASCADE_ENGINE / "model.txt")
+        .read_text())
+    return path
+
+
+def cascade_det_weights(cfg: str, path: str) -> str:
+    """Write the port's seeded init of ``cfg`` to ``path`` (.npz); returns
+    its ``tree_digest``."""
+    from rtdm_tpu_torch.export.detector import load_detection_model
+    from rtdm_tpu_torch.models.io import save_variables, tree_digest
+    variables = load_detection_model(cfg, None, DETECTOR_SIZE)[1]
+    assert CASCADE_SEED == 0  # load_detection_model's init seed
+    save_variables(path, variables)
+    return tree_digest(variables)
+
+
+def jax_cascade(quant: str, cfg: str, det_weights: str,
+                frames: np.ndarray) -> dict:
+    """The JAX ``build_cascade`` at batch 1, one frame a call: probs, det,
+    count, and the candidates its NMS saw (the same program compiled with
+    ``batched_nms`` left out), rows frame, x1, y1, x2, y2, score, cls."""
+    from rtdm_tpu.cli.cascade_stream import build_cascade
+    from rtdm_tpu_torch.eval.detection import candidates
+    args = (cfg, det_weights, CASCADE_CLS[0], CASCADE_CLS[1], DETECTOR_SIZE,
+            CASCADE_CONF, CASCADE_IOU, quant)
+    fn = build_cascade(*args)
+    out = [fn(frames[i:i + 1]) for i in range(len(frames))]
+    with jax_nms_left_out():
+        pred_fn = build_cascade(*args)
+    rows = [candidates(np.asarray(pred_fn(frames[i:i + 1])[1]),
+                       CASCADE_CONF)[0] for i in range(len(frames))]
+    return {f"probs_{quant}": np.concatenate([np.asarray(o[0]) for o in out]),
+            f"det_{quant}": np.concatenate([np.asarray(o[1]) for o in out]),
+            f"count_{quant}": np.concatenate([np.asarray(o[2])
+                                              for o in out]),
+            f"cand_{quant}": np.concatenate(
+                [np.c_[np.full(len(r), i), r] for i, r in enumerate(rows)]
+            ).astype(np.float32)}
+
+
+def make_cascade_golden() -> dict:
+    with np.load(GOLDEN_DET) as g:
+        frames = g["frames_416"]
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = cascade_cfg(tmp)
+        weights = os.path.join(tmp, "det.npz")
+        out = {"det_weights_digest": np.array(
+            cascade_det_weights(cfg, weights)),
+            "conf_thres": np.array(CASCADE_CONF),
+            "iou_thres": np.array(CASCADE_IOU)}
+        for quant in CASCADE_QUANTS:
+            out.update(jax_cascade(quant, cfg, weights, frames))
+    return out
+
+
 def main() -> None:
     import sys
-    which = sys.argv[1:] or ["classifier", "detector", "cli"]
+    which = sys.argv[1:] or ["classifier", "detector", "cli", "cascade"]
     os.environ["RTDM_XLA_CACHE"] = "0"   # no persistent compile cache
     GOLDEN.parent.mkdir(parents=True, exist_ok=True)
     if "classifier" in which:
@@ -340,6 +421,9 @@ def main() -> None:
     if "cli" in which:
         np.savez_compressed(GOLDEN_CLI, **make_cli_golden())
         print(f"wrote {GOLDEN_CLI}")
+    if "cascade" in which:
+        np.savez_compressed(GOLDEN_CASCADE, **make_cascade_golden())
+        print(f"wrote {GOLDEN_CASCADE}")
 
 
 if __name__ == "__main__":

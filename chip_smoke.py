@@ -101,7 +101,27 @@ non-zero exit, and the result line is printed only at the end:
      ms/frame median and p90; AutoShape over both detectors on the
      examples as paths and arrays, equal to the Detector plus the
      un-letterbox; the ACFF launches of every one of these paths;
-  9. one JSON line of kernels; then the last line, the result.
+  9. training (rtdm_tpu_torch/train/, cli/aider_train.py): the three cases
+     of tests/goldens/torch_port/train.npz (the JAX train step, three
+     steps of Squeeze_ErNET at 140 from one init on one batch of 16: fp32
+     sgd, fp32 adamw, bf16 adamw) on the card against the golden and the
+     port on the CPU (TRAIN_GATES), with a control (weight decay on
+     BatchNorm's scale too) that must miss case a's gate; train_model on
+     an AIDER-style hue-separable set written under build/chip_smoke/aider
+     (AIDER_SPLITS images of AIDER_SIDE^2): fp32 at batch 32 doubled to 64
+     for 3 epochs without augmentation (the loss falls, val_acc >= 0.4)
+     and bf16 with the defaults (albumentations-style augmentations,
+     mixup and cutmix) for 1 epoch (finite losses), each run's ACFF
+     launches counted from 0: 4 of the policy's kernel a validation or
+     test batch, none in a train step; on the trained weights the
+     kernels against the blocks run layer by layer (fp32 and bf16 logit
+     gates) and ROADMAP fault 4 (evaluate, step, evaluate again: the
+     second eval sees the new weights); the Engine built from the trained
+     .npz against the port on the CPU on the golden frames; the train step
+     at batch 64 and 256 in fp32 and bf16 (median, p90, images/s, peak
+     memory), the eval step, and a profiler split of one bf16 step at
+     batch 256;
+ 10. one JSON line of kernels; then the last line, the result.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
 code 2 and no result without CUDA, or when run outside a checkout.
@@ -1768,6 +1788,450 @@ def phase_serving(card, work):
     return records, launches
 
 
+# --- phase 9: training on the card ---------------------------------------
+
+GOLDEN_TRAIN = GOLDEN.with_name("train.npz")
+# case: (loss, grad_norm, params of the largest |param|, stats per leaf),
+# the CPU port's gates against the golden (tests/test_torch_trainer.py),
+# held on the card too
+TRAIN_GATES = {"a": (1e-5, 3e-5, 2e-5, 1e-4), "b": (2e-4, 3e-3, 5e-3, 2e-3),
+               "c": (3e-3, 2e-2, 1e-2, 1e-2)}
+AIDER_SPLITS = {"train": 320, "val": 40, "test": 40}
+AIDER_SIDE = 160
+TRAIN_TIMED = 10
+TRAIN_WARM = 3
+# the train step's kernels by kind, by name (the first pattern that
+# matches): cuDNN's grouped (depthwise) convs, its other convs (the 1x1
+# fuse and head, the stem), its layout transforms, dtype casts and copies,
+# reductions (BatchNorm's statistics and their gradients, the loss), the
+# optimizer, the pools
+TRAIN_KERNEL_KINDS = (
+    ("depthwise conv (fwd, dgrad, wgrad)", r"grouped|c1_k1|depthwise"),
+    ("cuDNN layout transforms", r"tensorTransform|nchwTo|nhwcTo"),
+    ("other convs (1x1 fuse, head, stem)",
+     r"xmma|implicit|gemm|conv|cudnn|sm90_|sm80_"),
+    ("casts and copies", r"copy"),
+    ("reductions (BN statistics and grads, loss)", r"reduce_kernel"),
+    ("optimizer", r"multi_tensor|adam|Adam"),
+    ("pools", r"pool"),
+    ("elementwise (BN affine, LeakyReLU, mixing, clip, grad sums)", r""))
+HUES = ((200, 30, 30), (30, 200, 30), (30, 30, 200), (200, 200, 30),
+        (30, 200, 200))
+
+
+def _train_golden():
+    with np.load(GOLDEN_TRAIN) as g:
+        golden = dict(g)
+    golden["spec"] = json.loads(str(golden["spec"]))
+    return golden
+
+
+def golden_train_case(golden, case, device, decay_all=False):
+    """The port's train step on ``device`` in one case of the train golden
+    (three steps from its init on its batch): per-step metrics and the
+    final variables, flat in the JAX layout."""
+    from rtdm_tpu_torch.core.precision import policy_from_name
+    from rtdm_tpu_torch.data.aider import normalize_batch
+    from rtdm_tpu_torch.models import create_model
+    from rtdm_tpu_torch.models.io import (flatten_tree,
+                                          torch_state_dict_from_variables,
+                                          unflatten_tree,
+                                          variables_from_torch_state_dict)
+    from rtdm_tpu_torch.train.losses import make_classification_loss
+    from rtdm_tpu_torch.train.schedules import make_optimizer, make_schedule
+    from rtdm_tpu_torch.train.trainer import (create_train_state,
+                                              make_train_step)
+    sp = golden["spec"]
+    precision, opt, lr = sp["cases"][case]
+    model = create_model(sp["model"], device=device,
+                         dropout_rate=sp["dropout"])
+    model.load_state_dict(torch_state_dict_from_variables(unflatten_tree(
+        {k[5:]: v for k, v in golden.items() if k.startswith("init/")})))
+    tx = make_optimizer(opt, make_schedule("onecycle", lr, sp["total_steps"],
+                                           sp["warmup_ratio"]),
+                        sp["weight_decay"], grad_clip=sp["grad_clip"],
+                        decay_kernels_only=not decay_all)
+    step = make_train_step(tx, make_classification_loss(
+        sp["loss"], label_smoothing=sp["label_smoothing"]),
+        policy_from_name(precision), sp["grad_accum_steps"])
+    state = create_train_state(model, tx)
+    x = normalize_batch(torch.from_numpy(golden["images"]).to(device))
+    y = torch.from_numpy(golden["labels"]).long().to(device)
+    metrics = {"loss": [], "accuracy": [], "grad_norm": []}
+    for _ in range(sp["steps"]):
+        state, m = step(state, x, y, 0)
+        for k in metrics:
+            metrics[k].append(float(m[k]))
+    final = flatten_tree(variables_from_torch_state_dict(
+        state.model.state_dict()))
+    return {k: np.array(v) for k, v in metrics.items()}, final
+
+
+def train_gaps(ref, metrics, final):
+    """(loss, grad_norm, params, stats) gaps of a run to ``ref`` =
+    (metrics, final): relative per step, params over the largest |param|,
+    stats per leaf."""
+    ref_m, ref_f = ref
+    rel = [np.abs(metrics[k] - ref_m[k]).max() / np.abs(ref_m[k]).max()
+           for k in ("loss", "grad_norm")]
+    params = [k for k in ref_f if k.startswith("params/")]
+    scale = max(np.abs(ref_f[k]).max() for k in params)
+    p_gap = max(np.abs(final[k] - ref_f[k]).max() for k in params) / scale
+    s_gap = max(np.abs(final[k] - ref_f[k]).max() / np.abs(ref_f[k]).max()
+                for k in ref_f if k.startswith("batch_stats/"))
+    return (*rel, p_gap, s_gap)
+
+
+def phase_train_golden(card):
+    """Phase 9a: the train golden's three cases on the card against the
+    golden (TRAIN_GATES) and the port on the CPU (the same gates),
+    and the control (weight decay on BatchNorm's scale too) that must
+    miss case a's gate."""
+    golden = _train_golden()
+    records = {}
+    for case in sorted(golden["spec"]["cases"]):
+        ref = ({k: golden[f"{case}/{k}"] for k in ("loss", "accuracy",
+                                                   "grad_norm")},
+               {k[len(case) + 7:]: v for k, v in golden.items()
+                if k.startswith(f"{case}/final/")})
+        card_run = golden_train_case(golden, case, "cuda")
+        cpu_run = golden_train_case(golden, case, "cpu")
+        to_golden = train_gaps(ref, *card_run)
+        to_cpu = train_gaps(cpu_run, *card_run)
+        gate = TRAIN_GATES[case]
+        records[case] = {"card_vs_golden": to_golden,
+                         "card_vs_cpu_port": to_cpu,
+                         "cpu_port_vs_golden": train_gaps(ref, *cpu_run),
+                         "gate": gate, "loss": card_run[0]["loss"].tolist()}
+        say(f"train golden case {case} {golden['spec']['cases'][case]}: "
+            f"card vs golden (loss, grad_norm, params, stats) "
+            f"{['%.3e' % v for v in to_golden]}; vs the CPU port "
+            f"{['%.3e' % v for v in to_cpu]}; gate {gate}")
+        if not all(g <= t for g, t in zip(to_golden + to_cpu, gate * 2)):
+            raise AssertionError(f"train golden case {case}: card gaps "
+                                 f"{to_golden} / {to_cpu} over {gate}")
+    ctl = train_gaps(({k: golden[f"a/{k}"] for k in ("loss", "grad_norm")},
+                      {k[8:]: v for k, v in golden.items()
+                       if k.startswith("a/final/")}),
+                     *golden_train_case(golden, "a", "cuda", decay_all=True))
+    records["control_decay_all"] = ctl
+    say(f"train golden control (decay on every parameter), case a: "
+        f"{['%.3e' % v for v in ctl]}")
+    if all(g <= t for g, t in zip(ctl, TRAIN_GATES["a"])):
+        raise AssertionError("the decay-all control met case a's gate")
+    return records
+
+
+def phase_train_pool_check():
+    """Phase 9a': the head's AvgPool2d(5, 1, 1) backward on the card
+    against float64 on the CPU: the port's ``avg_pool2d`` (NCHW on CUDA)
+    must be within 1e-6; torch's channels_last pool, which the port steps
+    around, is printed beside it."""
+    import torch.nn.functional as F
+
+    from rtdm_tpu_torch.ops.convpool import avg_pool2d
+    gen = torch.Generator().manual_seed(SEED)
+    x = torch.randn(8, 4, 4, 5, generator=gen, dtype=torch.float64)
+    go = torch.randn(8, 2, 2, 5, generator=gen, dtype=torch.float64)
+
+    def grad(fn, device, dtype):
+        xx = x.to(device, dtype).clone().requires_grad_()
+        fn(xx).backward(go.to(device, dtype))
+        return xx.grad.double().cpu()
+
+    def channels_last(t):
+        return F.avg_pool2d(t.permute(0, 3, 1, 2), 5, 1, 1,
+                            count_include_pad=True).permute(0, 2, 3, 1)
+
+    pool = lambda t: avg_pool2d(t, 5, 1, 1)       # noqa: E731
+    want = grad(pool, "cpu", torch.float64)
+    errs = {name: float((grad(fn, "cuda", torch.float32) - want).abs().max()
+                        / want.abs().max())
+            for name, fn in (("port", pool), ("channels_last", channels_last))}
+    say(f"head pool backward on the card vs float64: the port's "
+        f"{errs['port']:.3e}, torch's channels_last pool "
+        f"{errs['channels_last']:.3e} of max |grad|")
+    if errs["port"] > 1e-6:
+        raise AssertionError(f"avg_pool2d backward on the card: {errs}")
+    return errs
+
+
+def write_aider_set(root: Path, seed: int = SEED) -> Path:
+    """An AIDER-style directory of hue-separable images (one hue a class,
+    noise of sd 25) with train/val/test CSVs of AIDER_SPLITS rows."""
+    from PIL import Image
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    i = 0
+    for split, n in AIDER_SPLITS.items():
+        rows = []
+        for _ in range(n):
+            label = i % len(HUES)
+            arr = np.clip(np.array(HUES[label], np.float32)
+                          + rng.normal(0, 25, (AIDER_SIDE, AIDER_SIDE, 3)),
+                          0, 255).astype(np.uint8)
+            name = f"img_{i}.png"
+            Image.fromarray(arr).save(root / name)
+            rows.append(f"{name},{label}\n")
+            i += 1
+        (root / f"{split}.csv").write_text("".join(rows))
+    return root
+
+
+def phase_train_model(card, work, launches):
+    """Phase 9b: ``train_model`` on the card, fp32 (batch 32, doubled to 64,
+    3 epochs, no augmentation: the loss falls, val_acc >= 0.4) and bf16
+    (the defaults: albumentations-style augmentations, mixup and cutmix,
+    1 epoch: finite losses). The ACFF launches are counted from 0 around
+    each run: 4 of the policy's kernel a validation or test batch, none in
+    a train step. Returns the records and the fp32 run's config."""
+    from rtdm_tpu_torch.cli.aider_train import train_model
+    from rtdm_tpu_torch.core.config import TrainingConfig
+    data = write_aider_set(work / "aider")
+    splits = {s: str(data / f"{s}.csv") for s in AIDER_SPLITS}
+    runs = {"fp32": dict(batch_size=32, epochs=3, augment=False),
+            "bf16": dict(epochs=1)}
+    records, configs = {}, {}
+    for precision, kw in runs.items():
+        config = TrainingConfig(
+            model="squeeze-ernet", precision=precision, root_dir=str(data),
+            train_split=splits["train"], val_split=splits["val"],
+            test_split=splits["test"], checkpoint_dir=str(
+                work / f"train_{precision}" / "saves"),
+            log_dir=str(work / f"train_{precision}" / "logs"), **kw)
+        _count_from_zero()
+        t0 = time.perf_counter()
+        state, history = train_model(config)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        batch = config.batch_size
+        eval_batches = (-(-AIDER_SPLITS["val"] // batch)
+                        * len(history["val_loss"])
+                        + -(-AIDER_SPLITS["test"] // batch))
+        _read_launches(f"aider_train/{precision}", launches,
+                       _only(precision, 4 * eval_batches))
+        losses = history["train_loss"]
+        records[precision] = {"seconds": seconds, "steps": state.step,
+                              "batch": batch, "history": history,
+                              "eval_batches": eval_batches}
+        say(f"aider_train {precision} on the card: {len(losses)} epochs, "
+            f"{state.step} steps of batch {batch}, train loss "
+            f"{['%.4f' % v for v in losses]}, val_acc "
+            f"{['%.3f' % v for v in history['val_acc']]}, {seconds:.1f} s; "
+            f"{precision} ACFF launches {4 * eval_batches} "
+            f"({eval_batches} eval batches), 0 in the train steps [{card}]")
+        if not np.all(np.isfinite(losses + history["val_loss"])):
+            raise AssertionError(f"aider_train {precision}: non-finite loss")
+        if precision == "fp32" and not (losses[-1] < losses[0] and max(
+                history["val_acc"]) >= 0.4):
+            raise AssertionError("aider_train fp32: the loss did not fall or "
+                                 "val_acc stayed under 0.4")
+        configs[precision] = config
+    return records, configs["fp32"]
+
+
+def phase_train_eval(card, config):
+    """Phase 9c: on the trained weights, the eval model's kernels against
+    the blocks run layer by layer (fp32 and bf16 engine gates), and ROADMAP
+    fault 4 on the card: evaluate, step, evaluate again."""
+    from rtdm_tpu_torch.core.precision import FP32_POLICY, tf32
+    from rtdm_tpu_torch.data.aider import AiderDataset, normalize_batch
+    from rtdm_tpu_torch.models import create_model
+    from rtdm_tpu_torch.models.acff import layer_by_layer
+    from rtdm_tpu_torch.models.io import (load_variables,
+                                          torch_state_dict_from_variables)
+    from rtdm_tpu_torch.train.losses import make_classification_loss
+    from rtdm_tpu_torch.train.schedules import make_optimizer
+    from rtdm_tpu_torch.train.trainer import Trainer
+    state_dict = torch_state_dict_from_variables(
+        load_variables(config.weights))
+    ds = AiderDataset(config.val_split, config.root_dir, 140)
+    frames = np.stack([ds.load(i)[0] for i in range(len(ds))])
+    x = normalize_batch(torch.from_numpy(frames).cuda())
+    records = {}
+    for quant, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        model = create_model("squeeze-ernet", device="cuda")
+        model.load_state_dict(state_dict)
+        for p in model.parameters():
+            p.data = p.data.to(dtype)
+        with torch.no_grad(), tf32(quant != "fp32"):
+            _count_from_zero()
+            got = model(x.to(dtype), apply_softmax=False).float()
+            _read_launches(f"train eval kernel check/{quant}", {},
+                           _only(quant, 4))
+            with layer_by_layer(model):
+                want = model(x.to(dtype), apply_softmax=False).float()
+        err = ((got - want).abs().max() / want.abs().max()).item()
+        records[quant] = err
+        say(f"trained weights, {quant}: kernel eval vs the blocks layer by "
+            f"layer {err:.3e} of max |logit| (gate {LOGIT_REL_TOL[quant]})")
+        if err > LOGIT_REL_TOL[quant]:
+            raise AssertionError(f"trained weights {quant}: kernel eval "
+                                 f"{err} from the layers")
+    model = create_model("squeeze-ernet", device="cuda", dropout_rate=0.0)
+    model.load_state_dict(state_dict)
+    trainer = Trainer(model, make_optimizer("sgd", 0.05),
+                      make_classification_loss("label_smoothing"),
+                      policy=FP32_POLICY)
+    state = trainer.init_state()
+    y = torch.from_numpy(ds.labels).long().cuda()
+    view = trainer.eval_step.model
+
+    def logits():
+        with torch.no_grad(), tf32(False):
+            return view(x, apply_softmax=False).float()
+
+    trainer.eval_step(state, x, y, len(y))
+    first = logits()
+    state, _ = trainer.train_step(state, x, y, 0)
+    trainer.eval_step(state, x, y, len(y))
+    second = logits()
+    fresh = create_model("squeeze-ernet", device="cuda")
+    fresh.load_state_dict(state.model.state_dict())
+    with torch.no_grad(), tf32(False), layer_by_layer(fresh):
+        want = fresh(x, apply_softmax=False).float()
+    err = ((second - want).abs().max() / want.abs().max()).item()
+    moved = ((second - first).abs().max() / first.abs().max()).item()
+    records["fault1"] = {"after_step_vs_layers": err, "moved": moved}
+    say(f"fault 4 on the card: eval after a step vs the new weights layer "
+        f"by layer {err:.3e} of max |logit| (gate {LOGIT_REL_TOL['fp32']}); "
+        f"the step moved the logits {moved:.3e}")
+    if err > LOGIT_REL_TOL["fp32"] or moved <= LOGIT_REL_TOL["fp32"]:
+        raise AssertionError("fault 4: the eval after a step does not see "
+                             "the new weights")
+    return records
+
+
+def phase_train_engine(card, config, golden):
+    """Phase 9d: the port's Engine built from the trained .npz on the card,
+    against the port on the CPU, on the docs/examples frames."""
+    from rtdm_tpu_torch.export.engine import build_engine
+    from rtdm_tpu_torch.models.io import load_variables
+    variables = load_variables(config.weights)
+    frames = golden["frames_140"]
+    records = {}
+    for quant in ("fp32", "bf16"):
+        got = build_engine("squeeze-ernet", variables, quant, batch_size=16)(
+            frames)
+        want = build_engine("squeeze-ernet", variables, quant, batch_size=16,
+                            device="cpu")(frames)
+        err = float(np.abs(got - want).max() / np.abs(want).max())
+        records[quant] = err
+        say(f"engine from the trained .npz, {quant}: card vs CPU port "
+            f"{err:.3e} of max |prob| (gate {LOGIT_REL_TOL[quant]}), argmax "
+            f"equal {bool((got.argmax(1) == want.argmax(1)).all())}")
+        if err > LOGIT_REL_TOL[quant]:
+            raise AssertionError(f"trained engine {quant}: card vs CPU {err}")
+    return records
+
+
+def phase_train_timing(card):
+    """Phase 9e: the train step (grad accumulation 2, as the CLI's default)
+    at batch 64 and 256 in fp32 and bf16: median and p90 ms, images/s,
+    peak memory; the eval step's ms; and a profiler split of one bf16 step
+    at batch 256."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtdm_tpu_torch.core.precision import policy_from_name
+    from rtdm_tpu_torch.models import create_model
+    from rtdm_tpu_torch.train.losses import make_classification_loss
+    from rtdm_tpu_torch.train.schedules import make_optimizer, make_schedule
+    from rtdm_tpu_torch.train.trainer import Trainer
+    rng = np.random.default_rng(SEED)
+    records = {}
+    for precision in ("fp32", "bf16"):
+        for batch in (64, 256):
+            model = create_model("squeeze-ernet", device="cuda")
+            tx = make_optimizer("adamw", make_schedule("onecycle", 3e-4, 100))
+            trainer = Trainer(model, tx, make_classification_loss(
+                "label_smoothing"), policy=policy_from_name(precision),
+                grad_accum_steps=2, mixup_alpha=0.2, cutmix_alpha=0.1)
+            state = trainer.init_state()
+            x = torch.from_numpy(rng.normal(size=(batch, 140, 140, 3)).astype(
+                np.float32)).cuda()
+            y = torch.from_numpy(rng.integers(0, 5, batch)).cuda()
+            for _ in range(TRAIN_WARM):
+                trainer.train_step(state, x, y, 1)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            samples = []
+            for _ in range(TRAIN_TIMED):
+                t0 = time.perf_counter()
+                _, m = trainer.train_step(state, x, y, 1)
+                float(m["loss"])
+                samples.append((time.perf_counter() - t0) * 1e3)
+            med, p90 = _percentiles(samples)
+            mem = torch.cuda.max_memory_allocated()
+            eval_ms = []
+            for _ in range(TRAIN_TIMED):
+                t0 = time.perf_counter()
+                int(trainer.eval_step(state, x, y, batch)["correct"])
+                eval_ms.append((time.perf_counter() - t0) * 1e3)
+            emed, _ = _percentiles(eval_ms)
+            records[f"{precision}/{batch}"] = {
+                "step_ms_median": med, "step_ms_p90": p90,
+                "images_per_s": batch * 1e3 / med, "peak_memory_B": mem,
+                "eval_ms_median": emed}
+            say(f"train step {precision} batch {batch} (accum 2, mixup/"
+                f"cutmix): median {med:.3f} ms, p90 {p90:.3f} ms "
+                f"(n={TRAIN_TIMED}, host clock), {batch * 1e3 / med:.1f} "
+                f"images/s, peak memory {mem} B; eval step {emed:.3f} ms "
+                f"[{card}]")
+    # profiler split of one bf16 step at batch 256 (state from the loop)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, m = trainer.train_step(state, x, y, 1)
+        float(m["loss"])
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # kernels only: a user range (the optimizer's step) spans its kernels
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("Optimizer.")), reverse=True)
+    busy = sum(r[0] for r in rows)
+    shares = {}
+    for us, _, name in rows:
+        kind = next(k for k, pattern in TRAIN_KERNEL_KINDS
+                    if re.search(pattern, name))
+        shares[kind] = shares.get(kind, 0.0) + us
+    records["profile_bf16_256"] = {
+        "wall_us": wall_us, "busy_us": busy, "launches": sum(
+            r[1] for r in rows), "by_kind_us": shares,
+        "top": [(name[:80], us, n) for us, n, name in rows[:15]]}
+    if not rows:
+        say("train profile: the profiler recorded no device time; breakdown "
+            "not measured")
+        return records
+    say(f"train profile bf16 batch 256, one step: device busy {busy:.1f} us "
+        f"of {wall_us:.1f} us host clock ({100 * busy / wall_us:.1f}% "
+        f"busy), {records['profile_bf16_256']['launches']} kernels [{card}]")
+    for kind, us in sorted(shares.items(), key=lambda kv: -kv[1]):
+        say(f"  {us:9.1f} us {100 * us / busy:5.1f}% {kind}")
+    for us, n, name in rows[:15]:
+        say(f"  {us:9.1f} us {100 * us / busy:5.1f}% x{n} {name[:90]}")
+    return records
+
+
+def phase_training(card, work, golden):
+    """Phase 9: training on the card (9a-9e). Returns the records and, by
+    path, the ACFF launches of the train_model runs."""
+    t0 = time.perf_counter()
+    launches = {}
+    records = {"pool_backward": phase_train_pool_check(),
+               "golden": phase_train_golden(card)}
+    records["train_model"], fp32_config = phase_train_model(card, work,
+                                                            launches)
+    records["eval"] = phase_train_eval(card, fp32_config)
+    records["engine"] = phase_train_engine(card, fp32_config, golden)
+    records["timing"] = phase_train_timing(card)
+    records["seconds"] = time.perf_counter() - t0
+    say(f"phase 9: {records['seconds']:.1f} s")
+    return records, launches
+
+
 def main() -> int:
     if not (ROOT / "rtdm_tpu_torch").is_dir() or not GOLDEN.exists():
         print("chip_smoke.py runs from the root of a checkout of the "
@@ -1844,6 +2308,9 @@ def main() -> int:
     # 8. streaming, cascade and serving
     serving, serving_launches = phase_serving(card, work)
 
+    # 9. training
+    training, train_launches = phase_training(card, work, golden)
+
     # 9. kernels line: one entry a kernel (the QDQ mode of the bf16 kernel
     # its own), summed over the ACFF blocks of one forward of its main path
     # (the Squeeze_ErNET engine of its precision), launches counted in that
@@ -1880,6 +2347,8 @@ def main() -> int:
                 **{p: n[quant] for p, n in cli_launches.items()
                    if n[quant]},
                 **{p: n[quant] for p, n in serving_launches.items()
+                   if n[quant]},
+                **{p: n[quant] for p, n in train_launches.items()
                    if n[quant]}},
             "per_shape": [r for r in records if r["quant"] == quant],
         })
@@ -1929,6 +2398,8 @@ def main() -> int:
     say("detection CLIs: " + json.dumps(cli_records))
     say("streaming, cascade and serving: " + json.dumps(serving))
     say("ACFF launches on phase 8's paths: " + json.dumps(serving_launches))
+    say("training: " + json.dumps(training, default=float))
+    say("ACFF launches on phase 9's paths: " + json.dumps(train_launches))
     say(f"fault 2: {len(fault2_rows)} shapes x modes held to the plain "
         f"version")
     say(f"total {time.perf_counter() - t_start:.1f} s")

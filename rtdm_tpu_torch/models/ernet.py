@@ -1,4 +1,4 @@
-"""ErNET classifier family (EmergencyNet), inference, NHWC in.
+"""ErNET classifier family (EmergencyNet), NHWC in.
 
 Counterpart of ``rtdm_tpu/models/ernet.py``: SqueezeErNET and
 SqueezeRedConv at 140x140, ErNET at 240x240, all built around the ACFF
@@ -14,9 +14,14 @@ Shape flow:
 - ErNET @240: 6 ACFFs, avgpool(5,1,0) -> 3x3x5 -> fc(45->5).
 
 The flatten before fc follows torch's NCHW order, as the JAX model's does.
+In training mode (``model.train()``) a forward returns logits without the
+softmax, as the JAX models do with ``train=True``, and each ACFF block ends
+in Dropout(``dropout_rate``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -24,7 +29,7 @@ from torch import nn
 from rtdm_tpu_torch.core.device import resolve_device
 from rtdm_tpu_torch.models.acff import ACFF
 from rtdm_tpu_torch.models.io import infer_num_classes
-from rtdm_tpu_torch.models.layers import Conv, Dense
+from rtdm_tpu_torch.models.layers import Conv, Dense, init_he_normal
 from rtdm_tpu_torch.ops.convpool import (avg_pool2d, avg_pool2d_sequential,
                                          max_pool2d)
 
@@ -82,15 +87,17 @@ class SqueezeErNET(nn.Module):
     """Squeeze variant; input 140x140x3 NHWC."""
     UNROUNDED_IN_INT8 = _UNROUNDED
 
-    def __init__(self, image_size: int = 140, num_classes: int = NUM_CLASSES):
+    def __init__(self, image_size: int = 140, num_classes: int = NUM_CLASSES,
+                 dropout_rate: float = 0.2):
         super().__init__()
         self.image_size, self.num_classes = image_size, num_classes
+        self.dropout_rate = dropout_rate
         s = _stem(image_size)
         self.conv1 = Conv(3, 16, 3, stride=2, use_bias=False)
-        self.acff1 = ACFF(16, 64)
-        self.acff2 = ACFF(64, 96)
-        self.acff3 = ACFF(96, 128)
-        self.acff4 = ACFF(128, 256)
+        self.acff1 = ACFF(16, 64, dropout_rate)
+        self.acff2 = ACFF(64, 96, dropout_rate)
+        self.acff3 = ACFF(96, 128, dropout_rate)
+        self.acff4 = ACFF(128, 256, dropout_rate)
         for _ in range(3):
             s = (s - 2) // 2
         self.head = _ErnetHead(256, s - 2, 1, num_classes)
@@ -101,25 +108,27 @@ class SqueezeErNET(nn.Module):
         x = max_pool2d(self.acff1(x), 2, 2)
         x = max_pool2d(self.acff2(x), 2, 2)
         x = max_pool2d(self.acff3(x), 2, 2)
-        return self.head(self.acff4(x), apply_softmax)
+        return self.head(self.acff4(x), apply_softmax and not self.training)
 
 
 class SqueezeRedConv(nn.Module):
     """Variant with 1x1 reduction convs; input 140x140x3."""
     UNROUNDED_IN_INT8 = _UNROUNDED + ("conv_red1", "conv_red3")
 
-    def __init__(self, image_size: int = 140, num_classes: int = NUM_CLASSES):
+    def __init__(self, image_size: int = 140, num_classes: int = NUM_CLASSES,
+                 dropout_rate: float = 0.2):
         super().__init__()
         self.image_size, self.num_classes = image_size, num_classes
+        self.dropout_rate = dropout_rate
         s = _stem(image_size)
         self.conv1 = Conv(3, 16, 3, stride=2, use_bias=False)
         self.conv_red1 = Conv(16, 8, kernel_size=1)
-        self.acff1 = ACFF(8, 64)
-        self.acff2 = ACFF(64, 96)
+        self.acff1 = ACFF(8, 64, dropout_rate)
+        self.acff2 = ACFF(64, 96, dropout_rate)
         self.conv_red2 = Conv(96, 48, kernel_size=1)
-        self.acff3 = ACFF(48, 128)
+        self.acff3 = ACFF(48, 128, dropout_rate)
         self.conv_red3 = Conv(128, 64, kernel_size=1)
-        self.acff4 = ACFF(64, 256)
+        self.acff4 = ACFF(64, 256, dropout_rate)
         for _ in range(3):
             s = (s - 2) // 2
         self.head = _ErnetHead(256, s - 2, 1, num_classes)
@@ -130,24 +139,27 @@ class SqueezeRedConv(nn.Module):
         x = max_pool2d(self.acff1(x), 2, 2)
         x = max_pool2d(self.conv_red2(self.acff2(x)), 2, 2)
         x = max_pool2d(self.acff3(x), 2, 2)
-        return self.head(self.acff4(self.conv_red3(x)), apply_softmax)
+        return self.head(self.acff4(self.conv_red3(x)),
+                         apply_softmax and not self.training)
 
 
 class ErNET(nn.Module):
     """EmergencyNet baseline; input 240x240x3."""
     UNROUNDED_IN_INT8 = _UNROUNDED
 
-    def __init__(self, image_size: int = 240, num_classes: int = NUM_CLASSES):
+    def __init__(self, image_size: int = 240, num_classes: int = NUM_CLASSES,
+                 dropout_rate: float = 0.2):
         super().__init__()
         self.image_size, self.num_classes = image_size, num_classes
+        self.dropout_rate = dropout_rate
         s = _stem(image_size)
         self.conv1 = Conv(3, 16, 3, stride=2, use_bias=False)
-        self.acff1 = ACFF(16, 64)
-        self.acff2 = ACFF(64, 96)
-        self.acff3 = ACFF(96, 128)
-        self.acff4 = ACFF(128, 128)
-        self.acff5 = ACFF(128, 128)
-        self.acff6 = ACFF(128, 256)
+        self.acff1 = ACFF(16, 64, dropout_rate)
+        self.acff2 = ACFF(64, 96, dropout_rate)
+        self.acff3 = ACFF(96, 128, dropout_rate)
+        self.acff4 = ACFF(128, 128, dropout_rate)
+        self.acff5 = ACFF(128, 128, dropout_rate)
+        self.acff6 = ACFF(128, 256, dropout_rate)
         for _ in range(3):
             s = (s - 2) // 2
         self.head = _ErnetHead(256, s - 6, 0, num_classes)
@@ -159,7 +171,7 @@ class ErNET(nn.Module):
         x = max_pool2d(self.acff2(x), 2, 2)
         x = max_pool2d(self.acff3(x), 2, 2)
         x = self.acff6(self.acff5(self.acff4(x)))
-        return self.head(x, apply_softmax)
+        return self.head(x, apply_softmax and not self.training)
 
 
 MODEL_REGISTRY = {
@@ -172,15 +184,23 @@ MODEL_REGISTRY = {
 }
 
 
-def create_model(name: str, device="cuda", **kwargs) -> nn.Module:
-    """Build a classifier in eval mode on ``device``; weights are He-normal
-    from torch's global generator until loaded."""
+def create_model(name: str, device="cuda",
+                 generator: Optional[torch.Generator] = None,
+                 **kwargs) -> nn.Module:
+    """Build a classifier in eval mode on ``device``, its conv and dense
+    weights drawn from flax's He-normal (``layers.init_he_normal``) with
+    ``generator`` (a CPU generator; seed 0 when none is given), so that one
+    seed gives one start. ``kwargs`` go to the class (``image_size``,
+    ``num_classes``, ``dropout_rate``)."""
     key = name.lower()
     if key not in MODEL_REGISTRY:
         raise ValueError(f"unknown model '{name}'; "
                          f"choices: {sorted(set(MODEL_REGISTRY))}")
     device = resolve_device(device)
-    return MODEL_REGISTRY[key](**kwargs).to(device).eval()
+    model = MODEL_REGISTRY[key](**kwargs)
+    init_he_normal(model, generator if generator is not None
+                   else torch.Generator().manual_seed(0))
+    return model.to(device).eval()
 
 
 def input_size_for(name: str) -> int:
@@ -194,6 +214,7 @@ def with_checkpoint_head(model: nn.Module, variables) -> nn.Module:
     nc = infer_num_classes(variables)
     if nc and model.num_classes != nc:
         device = next(model.parameters()).device
-        model = type(model)(image_size=model.image_size, num_classes=nc)
+        model = type(model)(image_size=model.image_size, num_classes=nc,
+                            dropout_rate=model.dropout_rate)
         model = model.to(device).eval()
     return model

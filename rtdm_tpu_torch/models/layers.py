@@ -1,8 +1,10 @@
 """Small building blocks shared by all model families, NHWC in and out.
 
 Counterpart of ``rtdm_tpu/models/layers.py``: ``Conv`` (with groups),
-``DepthwiseConv``, ``BatchNorm`` (inference with running stats), ``Dense``
-and the parametric activations ``FReLU``, ``AconC`` and ``MetaAconC``, with
+``DepthwiseConv``, ``BatchNorm`` (batch statistics in training, running
+statistics at inference), ``Dense``, ``Dropout`` (its mask from an explicit
+generator) and the parametric activations ``FReLU``, ``AconC`` and
+``MetaAconC``, with
 the detectors' ``leaky_relu`` and ``silu`` rounded as the compiled JAX
 graphs round them in bf16. Parameters
 carry PyTorch's names and layouts (``weight`` OIHW or (O, I), ``bias``,
@@ -22,6 +24,7 @@ is not rounded to bf16 in between.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -37,7 +40,9 @@ def _pair(v: PairT) -> Tuple[int, int]:
 
 
 def _he_normal(*shape: int) -> nn.Parameter:
-    """The JAX layers' he_normal initializer (fan_in, gain sqrt(2))."""
+    """A He-normal weight (fan_in, gain sqrt(2)) from torch's global
+    generator; ``init_he_normal`` draws the JAX layers' initializer from an
+    explicit one."""
     return nn.Parameter(nn.init.kaiming_normal_(
         torch.empty(*shape), mode="fan_in", nonlinearity="relu"))
 
@@ -94,7 +99,12 @@ class Conv(nn.Module):
 
 
 class DepthwiseConv(nn.Module):
-    """Depthwise Conv2d (torch groups=in_channels), weight (C, 1, kh, kw)."""
+    """Depthwise Conv2d (torch groups=in_channels), weight (C, 1, kh, kw).
+
+    A bf16 one on the CPU runs as an fp32 conv of the bf16 values, rounded
+    once, as ``Conv`` does: oneDNN's bf16 depthwise conv sums otherwise,
+    and its weight gradient at dilation 2 and 3 is wrong (far from the
+    float64 gradient, inf on some calls)."""
 
     def __init__(self, channels: int, kernel_size: PairT = 3,
                  stride: PairT = 1, padding: PairT = 0, dilation: PairT = 1,
@@ -106,42 +116,116 @@ class DepthwiseConv(nn.Module):
         self.bias = _zeros(channels, use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return _add_bias(depthwise_conv2d(x, self.weight.to(x.dtype), None,
-                                          self.stride, self.padding,
-                                          self.dilation), self.bias)
+        args = (None, self.stride, self.padding, self.dilation)
+        if x.dtype == torch.bfloat16 and not x.is_cuda:
+            y = depthwise_conv2d(x.float(), self.weight.to(x.dtype).float(),
+                                 *args).to(x.dtype)
+        else:
+            y = depthwise_conv2d(x, self.weight.to(x.dtype), *args)
+        return _add_bias(y, self.bias)
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm2d over the last (channel) axis.
+    """BatchNorm2d over the last (channel) axis, computed in fp32 and cast
+    back to the input's dtype.
 
-    Uses the running statistics as stored (no unbiased correction at
-    inference), computes in fp32 and casts back to the input's dtype."""
+    In training mode it normalizes with the batch's statistics as the JAX
+    ``BatchNorm(train=True)`` computes them: ``mean`` and ``mean2`` (the
+    mean of x²) over (B, H, W), the biased ``var = mean2 - mean²`` (not
+    torch's two-pass or Welford variance), and updates the running
+    statistics with ``momentum`` and the unbiased ``var * n / (n - 1)``.
+    At inference it uses the running statistics as stored."""
 
-    def __init__(self, channels: int, epsilon: float = 1e-5):
+    def __init__(self, channels: int, epsilon: float = 1e-5,
+                 momentum: float = 0.1):
         super().__init__()
-        self.epsilon = epsilon
+        self.epsilon, self.momentum = epsilon, momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "BatchNorm runs at inference only; training is ported in a "
-                "later slice")
-        return self.affine(x).to(x.dtype)
+        if not self.training:
+            return self.affine(x).to(x.dtype)
+        xf = x.float()
+        mean = xf.mean((0, 1, 2))
+        var = xf.square().mean((0, 1, 2)) - mean.square()
+        n = x.shape[0] * x.shape[1] * x.shape[2]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
+            self.running_var.copy_((1 - m) * self.running_var
+                                   + m * (var * (n / max(n - 1, 1))))
+        inv = torch.rsqrt(var + self.epsilon) * self.weight.float()
+        return torch.addcmul(self.bias.float(), xf - mean, inv).to(x.dtype)
 
     def affine(self, x: torch.Tensor) -> torch.Tensor:
-        """The fp32 result, before the cast to x's dtype, as the jitted JAX
-        ``BatchNorm`` computes it (read off its compiled HLO, fp32 and bf16
-        inputs alike): ``inv = rsqrt(var + eps) * scale`` per channel, then
-        ``fma(x - mean, inv, bias)`` in fp32. The per-channel rsqrt is taken
-        correctly rounded; XLA:CPU's own is within one ulp of it."""
+        """The fp32 result at inference, before the cast to x's dtype, as
+        the jitted JAX ``BatchNorm`` computes it (read off its compiled HLO,
+        fp32 and bf16 inputs alike): ``inv = rsqrt(var + eps) * scale`` per
+        channel, then ``fma(x - mean, inv, bias)`` in fp32. The per-channel
+        rsqrt is taken correctly rounded; XLA:CPU's own is within one ulp
+        of it."""
         var = self.running_var.float() + self.epsilon
         inv = torch.rsqrt(var.double()).float() * self.weight.float()
         return torch.addcmul(self.bias.float(),
                              x.float() - self.running_mean.float(), inv)
+
+
+class Dropout(nn.Module):
+    """``flax.linen.Dropout``: in training mode each unit is kept with
+    probability 1 - rate and kept units are scaled by 1 / (1 - rate); the
+    mask is drawn from ``generator`` (on x's device), which the trainer
+    sets before each forward (``set_dropout_generator``). Identity at
+    inference and at rate 0."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+        self.generator: Optional[torch.Generator] = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.generator is None:
+            raise RuntimeError("Dropout in training needs a generator "
+                               "(set_dropout_generator)")
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
+def set_dropout_generator(model: nn.Module,
+                          generator: Optional[torch.Generator]) -> None:
+    """Every ``Dropout`` of ``model`` draws its masks from ``generator``."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+def init_he_normal(model: nn.Module, generator: torch.Generator) -> None:
+    """Draw every conv and dense weight of ``model`` (each parameter of two
+    or more dimensions) from the JAX layers' initializer, flax's
+    ``he_normal``: a normal of variance 2 / fan_in truncated to two standard
+    deviations (the draw scaled up by 1 / 0.87962566103423978 so that the
+    variance stays 2 / fan_in), by the inverse CDF of a uniform from
+    ``generator`` (CPU) as ``jax.random.truncated_normal`` draws it. The
+    numbers differ from the JAX package's for the same seed. Biases and
+    BatchNorm stay as constructed (zeros; unit scales and variances)."""
+    lo, hi = math.erf(-2 / math.sqrt(2)), math.erf(2 / math.sqrt(2))
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.dim() < 2:
+                continue
+            fan_in = p[0].numel()
+            std = math.sqrt(2.0 / fan_in) / 0.87962566103423978
+            u = torch.rand(p.shape, generator=generator,
+                           dtype=torch.float64) * (hi - lo) + lo
+            z = (math.sqrt(2) * torch.erfinv(u)).clamp(-2.0, 2.0)
+            p.copy_((z * std).to(p.dtype))
 
 
 class Dense(nn.Module):

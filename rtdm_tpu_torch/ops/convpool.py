@@ -62,8 +62,15 @@ def max_pool2d(x: torch.Tensor, kernel: _PairT,
 def avg_pool2d(x: torch.Tensor, kernel: _PairT,
                stride: Optional[_PairT] = None, padding: _PairT = 0,
                count_include_pad: bool = True) -> torch.Tensor:
-    """Average pool matching torch AvgPool2d."""
-    return _nhwc(F.avg_pool2d(_nchw(x), kernel,
+    """Average pool matching torch AvgPool2d. On a CUDA tensor it pools a
+    contiguous NCHW copy: torch's channels_last CUDA pool gives a wrong
+    input gradient where the window overlaps the padding (the head's
+    AvgPool2d(5, 1, 1); ``chip_smoke.py`` phase 9 prints both against
+    float64). The values are the same."""
+    t = _nchw(x)
+    if x.is_cuda:
+        t = t.contiguous()
+    return _nhwc(F.avg_pool2d(t, kernel,
                               stride if stride is not None else kernel,
                               padding, count_include_pad=count_include_pad))
 

@@ -1,0 +1,77 @@
+"""Checkpoint and resume.
+
+Counterpart of ``rtdm_tpu/train/checkpoint.py`` with ``torch.save`` in
+place of Orbax: a tag (``last``, ``best``) is ``<tag>.pt``, the step count
+and the model's and optimizer's state dicts, beside the same
+``<tag>.meta.json`` (epoch, best metrics, history, config) the JAX manager
+writes. ``restore`` loads with ``torch.load(weights_only=True)`` from the
+directory it was given and nowhere else.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from rtdm_tpu_torch.train.trainer import TrainState
+
+
+class CheckpointManager:
+    def __init__(self, directory: str):
+        self.directory = os.path.abspath(directory)
+        os.makedirs(self.directory, exist_ok=True)
+
+    def _path(self, tag: str) -> str:
+        return os.path.join(self.directory, f"{tag}.pt")
+
+    def save(self, tag: str, state: TrainState,
+             metadata: Optional[Dict[str, Any]] = None) -> str:
+        path = self._path(tag)
+        torch.save({"step": state.step,
+                    "model": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict()}, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        if metadata is not None:
+            with open(os.path.join(self.directory, f"{tag}.meta.json"),
+                      "w") as f:
+                json.dump(_jsonify(metadata), f, indent=2)
+        return path
+
+    def restore(self, tag: str, state: TrainState
+                ) -> Tuple[TrainState, Dict[str, Any]]:
+        """Load ``tag`` into ``state``'s model and optimizer (in place, on
+        their device) and its step; returns the state and the metadata."""
+        device = next(state.model.parameters()).device
+        saved = torch.load(self._path(tag), map_location=device,
+                           weights_only=True)
+        state.model.load_state_dict(saved["model"])
+        state.optimizer.load_state_dict(saved["optimizer"])
+        state.step = int(saved["step"])
+        state.weights_changed()
+        meta_path = os.path.join(self.directory, f"{tag}.meta.json")
+        metadata = {}
+        if os.path.exists(meta_path):
+            with open(meta_path) as f:
+                metadata = json.load(f)
+        return state, metadata
+
+    def exists(self, tag: str) -> bool:
+        return os.path.isfile(self._path(tag))
+
+
+def _jsonify(obj):
+    if isinstance(obj, dict):
+        return {k: _jsonify(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_jsonify(v) for v in obj]
+    if isinstance(obj, (np.generic,)):
+        return obj.item()
+    if isinstance(obj, np.ndarray):
+        return obj.tolist()
+    if hasattr(obj, "item") and getattr(obj, "ndim", None) == 0:
+        return obj.item()
+    return obj

@@ -1,16 +1,52 @@
-"""Detection plots.
+"""Training and detection plots.
 
-Counterpart of ``rtdm_tpu/utils/plots.py``, its detection panels: the
-annotated batch mosaics of ``yolo_test --plot-dir`` (``plot_detection_batch``,
-PIL only; plot_images, yolov5/utils/plots.py:128) and the label-statistics
-panel (``plot_label_distribution``, matplotlib, imported where it is
-drawn; plot_labels :285). The training curves and the evolution panels
-come with the training slice.
+Counterpart of ``rtdm_tpu/utils/plots.py``: the classifier's training
+curves (``plot_training_curves``: loss, accuracy, F1 and lr PNGs after
+training, matplotlib), the annotated batch mosaics of ``yolo_test
+--plot-dir`` (``plot_detection_batch``, PIL only; plot_images,
+yolov5/utils/plots.py:128) and the label-statistics panel
+(``plot_label_distribution``, matplotlib; plot_labels :285); matplotlib is
+imported where a panel is drawn. The evolution panels come with YOLO
+training.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import os
+from typing import Dict, Sequence
+
+
+def plot_training_curves(history: Dict[str, Sequence[float]],
+                         out_dir: str, prefix: str = "training") -> list:
+    """history keys like train_loss/val_loss/train_acc/val_acc/val_f1/lr."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    os.makedirs(out_dir, exist_ok=True)
+    written = []
+    panels = [
+        ("loss", ["train_loss", "val_loss"]),
+        ("accuracy", ["train_acc", "val_acc"]),
+        ("f1", ["val_f1"]),
+        ("lr", ["lr"]),
+    ]
+    for name, keys in panels:
+        keys = [k for k in keys if k in history and len(history[k])]
+        if not keys:
+            continue
+        fig, ax = plt.subplots(figsize=(7, 4.5))
+        for k in keys:
+            ax.plot(history[k], label=k)
+        ax.set_xlabel("epoch")
+        ax.set_title(name)
+        ax.legend()
+        ax.grid(alpha=0.3)
+        path = os.path.join(out_dir, f"{prefix}_{name}.png")
+        fig.savefig(path, dpi=110, bbox_inches="tight")
+        plt.close(fig)
+        written.append(path)
+    return written
 
 
 _BOX_COLORS = [(255, 56, 56), (72, 249, 10), (61, 219, 255), (255, 178, 29),

@@ -223,8 +223,15 @@ def test_packed_arguments_are_rebuilt_on_load(jax_ref, rng):
 
 
 def test_training_mode_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        ACFF(8, 32).train()(torch.zeros(1, 6, 6, 8))
+    """Training mode is ported since the training slice: the block runs
+    its layers with batch statistics (no fused kernel: the reference has
+    no backward), and dropout refuses to draw without a generator."""
+    x = torch.randn(2, 6, 6, 8, generator=torch.Generator().manual_seed(0))
+    block = ACFF(8, 32, 0.0).train()
+    torch.testing.assert_close(block(x), block.forward_layers(x), rtol=0,
+                               atol=0)
+    with pytest.raises(RuntimeError, match="generator"):
+        ACFF(8, 32).train()(x)
 
 
 # (C, O, H=W) of the four Squeeze_ErNET blocks

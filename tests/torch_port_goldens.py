@@ -29,14 +29,25 @@ the committed yolov4-tiny-mini engine, detector weights from the port's
 seeded init (``init_darknet``, seed ``CASCADE_SEED``, what the port's
 ``load_detection_model`` gives without weights, so a run on the card
 makes them again without JAX; their ``tree_digest`` is stored) and
-Squeeze_ErNET from ``artifacts/engines/squeeze-ernet_bf16/params.npz``.
+Squeeze_ErNET from ``artifacts/engines/squeeze-ernet_bf16/params.npz``;
+and ``tests/goldens/torch_port/train.npz``: the JAX classifier trainer
+(``make_train_step(mesh=None)``) on Squeeze_ErNET at 140 initialised from
+``jax.random.key(TRAIN_SEED)`` (dropout 0; its ``init/`` params and batch
+stats), one seeded uint8 batch of ``TRAIN_BATCH`` with its labels, and for
+each case of ``TRAIN_CASES`` (policy, optimizer, peak lr; all with weight
+decay 0.01, the kernel-only mask, clip 1.0, grad accumulation 2, onecycle
+over ``TRAIN_TOTAL`` steps with warmup ``TRAIN_WARMUP``, label smoothing
+0.1, no mixing) the per-step ``loss``, ``accuracy`` and ``grad_norm`` of
+``TRAIN_STEPS`` steps and the ``final/`` params and batch stats; ``spec``
+holds these settings as JSON.
 ``chip_smoke.py`` reads the files as plain data, which holds a run on the
 card against the reference without JAX there; ``tests/test_torch_engine.py``,
 ``tests/test_torch_detector.py`` and ``tests/test_torch_streaming.py``
-regenerate them in memory and check that they are current.
+regenerate them in memory and check that they are current
+(``tests/test_torch_trainer.py`` the train golden's start and case a).
 
 Regenerate: JAX_PLATFORMS=cpu python -m tests.torch_port_goldens
-[classifier|detector|cli|cascade] (all without an argument)
+[classifier|detector|cli|cascade|train] (all without an argument)
 """
 
 from __future__ import annotations
@@ -78,6 +89,21 @@ CASCADE_CONF = 0.65
 CASCADE_IOU = 0.45
 CASCADE_QUANTS = ("fp32", "bf16")
 CASCADE_CLS = ("squeeze-ernet", VETO[1])
+# the train golden: Squeeze_ErNET at 140 from this key, one batch, and per
+# case (precision, optimizer, peak lr)
+GOLDEN_TRAIN = GOLDEN.with_name("train.npz")
+TRAIN_SEED = 0
+TRAIN_BATCH = 16
+TRAIN_STEPS = 3
+TRAIN_TOTAL = 4          # onecycle: lr peak/25, peak, ~peak/2
+TRAIN_WARMUP = 0.5
+TRAIN_CASES = {"a": ("fp32", "sgd", 0.05), "b": ("fp32", "adamw", 1e-3),
+               "c": ("bf16", "adamw", 1e-3)}
+TRAIN_SPEC = {"model": "squeeze-ernet", "image_size": 140, "dropout": 0.0,
+              "weight_decay": 0.01, "grad_clip": 1.0, "grad_accum_steps": 2,
+              "total_steps": TRAIN_TOTAL, "warmup_ratio": TRAIN_WARMUP,
+              "loss": "label_smoothing", "label_smoothing": 0.1,
+              "steps": TRAIN_STEPS, "cases": TRAIN_CASES}
 
 
 def image_size(model: str) -> int:
@@ -406,9 +432,84 @@ def make_cascade_golden() -> dict:
     return out
 
 
+def train_batch() -> tuple:
+    """The train golden's seeded uint8 batch and int32 labels."""
+    rng = np.random.default_rng(TRAIN_SEED)
+    images = rng.integers(0, 256, (TRAIN_BATCH, 140, 140, 3), np.uint8)
+    return images, rng.integers(0, 5, TRAIN_BATCH).astype(np.int32)
+
+
+def jax_train_init() -> dict:
+    """Squeeze_ErNET's variables from ``jax.random.key(TRAIN_SEED)``."""
+    import jax
+    import jax.numpy as jnp
+    from rtdm_tpu.models import create_model
+    model = create_model("squeeze-ernet", dropout_rate=0.0)
+    variables = model.init(jax.random.key(TRAIN_SEED),
+                           jnp.zeros((1, 140, 140, 3), jnp.float32))
+    return jax.device_get(dict(variables))
+
+
+def jax_train_case(case: str, variables: dict, images: np.ndarray,
+                   labels: np.ndarray) -> dict:
+    """TRAIN_STEPS steps of the JAX train step in one case: per-step
+    metrics and the final variables."""
+    import jax
+    import jax.numpy as jnp
+    from rtdm_tpu.core.precision import policy_from_name
+    from rtdm_tpu.data.aider import normalize_batch
+    from rtdm_tpu.models import create_model
+    from rtdm_tpu.train.losses import make_classification_loss
+    from rtdm_tpu.train.schedules import make_optimizer, make_schedule
+    from rtdm_tpu.train.trainer import TrainState, make_train_step
+    precision, opt, lr = TRAIN_CASES[case]
+    sp = TRAIN_SPEC
+    model = create_model(sp["model"], dropout_rate=sp["dropout"])
+    tx = make_optimizer(opt, make_schedule("onecycle", lr, TRAIN_TOTAL,
+                                           TRAIN_WARMUP),
+                        sp["weight_decay"], grad_clip=sp["grad_clip"])
+    step = make_train_step(
+        model, tx, make_classification_loss(
+            sp["loss"], label_smoothing=sp["label_smoothing"]),
+        policy_from_name(precision), sp["grad_accum_steps"], mesh=None,
+        donate=False)
+    params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
+    state = TrainState(step=jnp.zeros((), jnp.int32), params=params,
+                       batch_stats=jax.tree_util.tree_map(
+                           jnp.asarray, variables["batch_stats"]),
+                       opt_state=tx.init(params))
+    x = jax.jit(normalize_batch)(jnp.asarray(images))
+    y = jnp.asarray(labels)
+    metrics = {"loss": [], "accuracy": [], "grad_norm": []}
+    for _ in range(TRAIN_STEPS):
+        state, m = step(state, x, y, jax.random.key(1))
+        for k in metrics:
+            metrics[k].append(float(m[k]))
+    out = {k: np.array(v, np.float32) for k, v in metrics.items()}
+    out["final"] = jax.device_get({"params": state.params,
+                                   "batch_stats": state.batch_stats})
+    return out
+
+
+def make_train_golden(cases=tuple(TRAIN_CASES)) -> dict:
+    from rtdm_tpu_torch.models.io import flatten_tree
+    variables = jax_train_init()
+    images, labels = train_batch()
+    out = {"spec": np.array(json.dumps(TRAIN_SPEC)), "images": images,
+           "labels": labels}
+    out.update({f"init/{k}": v for k, v in flatten_tree(variables).items()})
+    for case in cases:
+        res = jax_train_case(case, variables, images, labels)
+        final = flatten_tree(res.pop("final"))
+        out.update({f"{case}/{k}": v for k, v in res.items()})
+        out.update({f"{case}/final/{k}": v for k, v in final.items()})
+    return out
+
+
 def main() -> None:
     import sys
-    which = sys.argv[1:] or ["classifier", "detector", "cli", "cascade"]
+    which = sys.argv[1:] or ["classifier", "detector", "cli", "cascade",
+                             "train"]
     os.environ["RTDM_XLA_CACHE"] = "0"   # no persistent compile cache
     GOLDEN.parent.mkdir(parents=True, exist_ok=True)
     if "classifier" in which:
@@ -424,6 +525,9 @@ def main() -> None:
     if "cascade" in which:
         np.savez_compressed(GOLDEN_CASCADE, **make_cascade_golden())
         print(f"wrote {GOLDEN_CASCADE}")
+    if "train" in which:
+        np.savez_compressed(GOLDEN_TRAIN, **make_train_golden())
+        print(f"wrote {GOLDEN_TRAIN}")
 
 
 if __name__ == "__main__":

@@ -121,7 +121,25 @@ non-zero exit, and the result line is printed only at the end:
      at batch 64 and 256 in fp32 and bf16 (median, p90, images/s, peak
      memory), the eval step, and a profiler split of one bf16 step at
      batch 256;
- 10. one JSON line of kernels; then the last line, the result.
+ 10. detector training (rtdm_tpu_torch/cli/yolo_train.py and what it
+     runs): the three cases of tests/goldens/torch_port/yolo_train.npz (the
+     JAX detector train step, three steps from the committed detectors'
+     dequantized weights on the 10 example frames at 416: yolov5s-mini fp32
+     with v5 SGD and EMA, yolov4-tiny-mini fp32 with burn-in and two
+     microbatches, yolov5s-mini bf16) on the card against the golden and
+     the port on the CPU (YOLO_GATES), with two controls on case a that
+     must miss: BatchNorm at torch's momentum 0.1 (ROADMAP fault 8) and a
+     last-write-wins tobj (or no colliding cell); yolo_train on a synthetic
+     set written by data/synth.py under build/chip_smoke/synth
+     (SYNTH_SPLITS): yolov5s-mini at 416, batch 16 of nominal 64, 3 epochs
+     with EMA, mosaic and BN burn-in 2, then --resume to a 4th epoch, and
+     yolov4-tiny-mini 1 epoch --rect and 1 --multi-scale (finite losses,
+     the mAP computed, 0 ACFF launches each), best.npz served by
+     build_detector on the card; the train step of yolov5s-mini at 416 in
+     fp32 and bf16 at batch 16 and 64 (accumulate 4), the loader's images/s
+     with mosaic, a profiler split of one bf16 step and the eval pass's
+     ms/image;
+ 11. one JSON line of kernels; then the last line, the result.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
 code 2 and no result without CUDA, or when run outside a checkout.
@@ -2232,6 +2250,453 @@ def phase_training(card, work, golden):
     return records, launches
 
 
+# --- phase 10: detector training on the card ------------------------------
+
+GOLDEN_YOLO = GOLDEN.with_name("yolo_train.npz")
+# case: gates on (loss and components, grad_norm, params, stats, ema), each
+# relative (per step; per leaf over its max |value|), set over the port's
+# readings on the CPU against the golden in fp32 and in float64, which are
+# alike (JAX's own fp32 rounding): a (6.6e-5, 1.4e-5, 8.4e-8, 2.3e-6,
+# 2.3e-6), b (1.0e-5, 1.3e-6, 2.4e-7, -, -), c bf16 (2.5e-3, 6.5e-3,
+# 3.5e-4, 4.8e-5, 3.5e-4) (tests/test_torch_yolo_train.py), held on the
+# card too, against the golden and against the port on the CPU
+YOLO_GATES = {"a": (3e-4, 1e-4, 1e-6, 1e-5, 1e-5),
+              "b": (5e-5, 1e-5, 2e-6, 0.0, 0.0),
+              "c": (1e-2, 3e-2, 2e-3, 5e-4, 2e-3)}
+YOLO_GATE_NAMES = ("loss", "grad_norm", "params", "stats", "ema")
+# the synthetic set of phase 10b (data/synth.py, the generator's mixed
+# native sizes) and the timing of 10c
+SYNTH_SPLITS = (96, 16)
+YOLO_TIMED = 10
+YOLO_WARM = 3
+YOLO_KERNEL_KINDS = (
+    ("convs (fwd, dgrad, wgrad)",
+     r"xmma|implicit|gemm|conv|cudnn|sm90_|sm80_|winograd"),
+    ("cuDNN layout transforms", r"tensorTransform|nchwTo|nhwcTo"),
+    ("reductions (BN statistics and grads, loss sums, grad norm)",
+     r"reduce_kernel|Reduce"),
+    ("loss gathers and scatters", r"index|scatter|gather"),
+    ("optimizer and EMA (foreach)", r"multi_tensor|foreach|sgd|SGD"),
+    ("casts and copies", r"copy"),
+    ("pools", r"pool"),
+    ("elementwise (BN affine, SiLU, loss terms, clip)", r""))
+
+
+def _yolo_golden():
+    with np.load(GOLDEN_YOLO) as g:
+        golden = dict(g)
+    golden["spec"] = json.loads(str(golden["spec"]))
+    return golden
+
+
+def _lww_loss(is_v5, record):
+    """The port's loss with ``tobj`` written by an index-put (the last
+    write to a cell wins), counting in ``record['collisions']`` the valid
+    candidates that share a cell with another of another value."""
+    from rtdm_tpu_torch.train import yolo_loss as tl
+
+    def obj_and_cls(p, ps, b_idx, a_idx, gj, gi, vmask, tcls, iou, hyp,
+                    nc):
+        bsz, na, ny, nx, _ = p.shape
+        val = torch.where(vmask, (1.0 - hyp.gr)
+                          + hyp.gr * iou.detach().clamp_min(0.0),
+                          torch.zeros_like(iou))
+        cell = ((b_idx * na + a_idx) * ny + gj) * nx + gi
+        live = cell[vmask]
+        uniq = torch.unique(torch.stack([live, val[vmask].double()
+                                         .mul(1e6).round().long()]), dim=1)
+        record["collisions"] += int(uniq.shape[1]
+                                    - torch.unique(live).numel())
+        order = torch.argsort(val, stable=True)
+        tobj = p.new_zeros(bsz * na * ny * nx)
+        tobj[cell[order].flip(0)] = val[order].flip(0)
+        tobj = tobj.view(bsz, na, ny, nx)
+        obj = tl._bce_logits(p[..., 4], tobj, hyp.obj_pw)
+        if hyp.fl_gamma > 0:
+            obj = tl._focal(obj, p[..., 4], tobj, hyp.fl_gamma,
+                            hyp.fl_alpha)
+        cls = torch.zeros((), device=p.device)
+        if nc > 1:
+            one = torch.nn.functional.one_hot(tcls, nc).to(p.dtype)
+            bce = tl._bce_logits(ps[:, 5:], one, hyp.cls_pw)
+            if hyp.fl_gamma > 0:
+                bce = tl._focal(bce, ps[:, 5:], one, hyp.fl_gamma,
+                                hyp.fl_alpha)
+            cls = tl._masked_mean(bce.mean(-1), vmask)
+        return obj.mean(), cls
+
+    def loss(*args):
+        saved = tl._obj_and_cls
+        tl._obj_and_cls = obj_and_cls
+        try:
+            return (tl.yolo_loss_v5 if is_v5 else tl.yolo_loss)(*args)
+        finally:
+            tl._obj_and_cls = saved
+    return loss
+
+
+def golden_yolo_case(golden, case, device, work, dtype=None,
+                     bn_momentum=None, lww_record=None, steps=None):
+    """The port's detector train step (``cli/yolo_train.py``'s, as its
+    ``train`` builds it) on ``device`` in one case of the detector train
+    golden: per step the loss, its components, the gradients' global norm
+    and the golden's leaves (``vars``, ``ema``), flat in the JAX layout.
+    ``dtype`` float64 runs the model and the loss in float64 (the gate
+    readings); ``bn_momentum`` and ``lww_record`` make the controls;
+    ``steps`` cuts the run to its first steps."""
+    from rtdm_tpu_torch.cli import yolo_train as yt
+    from rtdm_tpu_torch.data.example_set import write_engine_as_cfg
+    from rtdm_tpu_torch.models.io import (flatten_tree,
+                                          variables_from_torch_state_dict)
+    from rtdm_tpu_torch.models.layers import BatchNorm
+    from rtdm_tpu_torch.train.ema import ema_init
+    sp = golden["spec"]
+    engine, precision, accumulate, use_ema = sp["cases"][case]
+    cfg, weights = write_engine_as_cfg(ENGINES / engine,
+                                       Path(work) / f"yolo_{case}")
+    args = yt.parse_args(["--cfg", cfg, "--weights", weights, "--img-size",
+                          str(sp["img_size"]), "--precision", precision,
+                          "--device", str(device)] + sp["flags"])
+    is_v5 = cfg.endswith(".yaml")
+    model, heads = yt.load_model(cfg, weights, args.img_size,
+                                 2 if is_v5 else None, device)
+    loss_fn, hyp = yt.build_loss(args, {}, heads, 2, is_v5)
+    if lww_record is not None:
+        loss_fn = _lww_loss(is_v5, lww_record)
+    dt = torch.bfloat16 if precision == "bf16" else torch.float32
+    if dtype == torch.float64:
+        model.double()
+        dt = torch.float64
+    if bn_momentum is not None:
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.momentum = bn_momentum
+    opt = yt.build_optimizer(args, model, is_v5, {}, sp["steps_per_epoch"],
+                             sp["total_steps"])
+    ema = ema_init(model) if use_ema else None
+    step = yt.make_train_step(model, heads, loss_fn, hyp, dt, accumulate,
+                              args.img_size, ema)
+    images = torch.from_numpy(golden["images"]).to(device)
+    labels = torch.from_numpy(golden["labels"]).to(device)
+    nlab = torch.from_numpy(golden["num_labels"]).to(device)
+    leaves = json.loads(str(golden[f"{case}/leaves"]))
+    out = {"loss": [], "comps": [], "grad_norm": [],
+           "vars": {k: [] for k in leaves["params"] + leaves["stats"]},
+           "ema": {k: [] for k in leaves["ema"]}}
+    for it in range(steps or sp["steps"]):
+        loss, comps, norm = step(opt, images, labels, nlab, it, sp["seed"],
+                                 train_size=args.img_size, update_bn=is_v5)
+        out["loss"].append(float(loss))
+        out["comps"].append(comps.double().cpu().numpy())
+        out["grad_norm"].append(float(norm))
+        for name, tree in (("vars", model.state_dict()), ("ema", ema)):
+            if out[name]:
+                flat = flatten_tree(variables_from_torch_state_dict(tree))
+                for k in out[name]:
+                    out[name][k].append(flat[k].copy())   # not a view
+    return {"loss": np.array(out["loss"]), "comps": np.stack(out["comps"]),
+            "grad_norm": np.array(out["grad_norm"]),
+            "vars": {k: np.stack(v) for k, v in out["vars"].items()},
+            "ema": {k: np.stack(v) for k, v in out["ema"].items()}}
+
+
+def golden_yolo_ref(golden, case, steps=None):
+    """A golden case in ``golden_yolo_case``'s layout (its first ``steps``
+    steps)."""
+    pre, cut = f"{case}/", slice(0, steps)
+    return {"loss": golden[pre + "loss"][cut],
+            "comps": golden[pre + "comps"][cut],
+            "grad_norm": golden[pre + "grad_norm"][cut],
+            "vars": {k[len(pre) + 5:]: v[cut] for k, v in golden.items()
+                     if k.startswith(pre + "vars/")},
+            "ema": {k[len(pre) + 4:]: v[cut] for k, v in golden.items()
+                    if k.startswith(pre + "ema/")}}
+
+
+def yolo_gaps(ref, run):
+    """(loss and components, grad_norm, params, stats, ema) gaps of ``run``
+    to ``ref``: relative per step (each component to itself), each leaf
+    over its max |value|; 0 where the case has no such leaf."""
+    def rel(a, b):
+        return float(np.max(np.abs(np.asarray(a, np.float64) - b)
+                            / np.maximum(np.abs(b), 1e-30)))
+
+    def leaf(a, b):
+        return float(np.abs(np.asarray(a, np.float64) - b).max()
+                     / max(np.abs(b).max(), 1e-30))
+
+    loss = max(rel(run["loss"], ref["loss"]), rel(run["comps"],
+                                                  ref["comps"]))
+    params = [leaf(run["vars"][k], v) for k, v in ref["vars"].items()
+              if k.startswith("params/")]
+    stats = [leaf(run["vars"][k], v) for k, v in ref["vars"].items()
+             if k.startswith("batch_stats/")]
+    ema = [leaf(run["ema"][k], v) for k, v in ref["ema"].items()]
+    return (loss, rel(run["grad_norm"], ref["grad_norm"]),
+            max(params, default=0.0), max(stats, default=0.0),
+            max(ema, default=0.0))
+
+
+def _fmt(gaps):
+    return ", ".join(f"{n} {g:.3e}" for n, g in zip(YOLO_GATE_NAMES, gaps))
+
+
+def phase_yolo_golden(card, work):
+    """Phase 10a: the detector train golden's three cases on the card
+    against the golden and the port on the CPU (YOLO_GATES), and two
+    controls on case a: BatchNorm at torch's momentum 0.1 (ROADMAP fault 8)
+    must miss the statistics gate; a last-write-wins ``tobj`` must miss the
+    loss gate, or count no cell where two candidates collide."""
+    golden = _yolo_golden()
+    records = {}
+    for case in sorted(golden["spec"]["cases"]):
+        ref = golden_yolo_ref(golden, case)
+        t0 = time.perf_counter()
+        card_run = golden_yolo_case(golden, case, "cuda", work)
+        t1 = time.perf_counter()
+        cpu_run = golden_yolo_case(golden, case, "cpu", work)
+        t2 = time.perf_counter()
+        to_golden, to_cpu = yolo_gaps(ref, card_run), yolo_gaps(cpu_run,
+                                                                card_run)
+        gate = YOLO_GATES[case]
+        records[case] = {"card_vs_golden": to_golden,
+                         "card_vs_cpu_port": to_cpu,
+                         "cpu_port_vs_golden": yolo_gaps(ref, cpu_run),
+                         "gate": gate,
+                         "loss": card_run["loss"].tolist(),
+                         "card_s": t1 - t0, "cpu_s": t2 - t1}
+        say(f"yolo train golden case {case} {golden['spec']['cases'][case]}:"
+            f" card vs golden {_fmt(to_golden)}; vs the CPU port "
+            f"{_fmt(to_cpu)}; gate {gate}; card {t1 - t0:.1f} s, CPU "
+            f"{t2 - t1:.1f} s")
+        if not all(g <= t for g, t in zip(to_golden + to_cpu, gate * 2)):
+            raise AssertionError(f"yolo train golden case {case}: card gaps "
+                                 f"{to_golden} / {to_cpu} over {gate}")
+    ref = golden_yolo_ref(golden, "a")
+    ctl = yolo_gaps(ref, golden_yolo_case(golden, "a", "cuda", work,
+                                          bn_momentum=0.1))
+    records["control_bn_momentum_0.1"] = ctl
+    say(f"yolo golden control (BN momentum 0.1), case a: {_fmt(ctl)}")
+    if ctl[3] <= YOLO_GATES["a"][3]:
+        raise AssertionError("the BN momentum control met case a's "
+                             "statistics gate")
+    lww = {"collisions": 0}
+    ctl = yolo_gaps(ref, golden_yolo_case(golden, "a", "cuda", work,
+                                          lww_record=lww))
+    records["control_last_write_wins"] = {"gaps": ctl, **lww}
+    say(f"yolo golden control (last-write-wins tobj), case a: {_fmt(ctl)}; "
+        f"{lww['collisions']} colliding candidates in its loss calls")
+    if ctl[0] <= YOLO_GATES["a"][0] and lww["collisions"]:
+        raise AssertionError("the last-write-wins control met case a's "
+                             "loss gate on a batch with collisions")
+    return records
+
+
+def _yolo_flags(cfg, weights, data, out, v5):
+    flags = ["--cfg", cfg, "--weights", weights, "--data", data,
+             "--img-size", "416", "--batch-size", "16", "--nominal-batch",
+             "64", "--no-plots", "--output", str(out), "--exist-ok",
+             "--num-workers", "8", "--device", "cuda"]
+    if v5:
+        flags += ["--lr0", "0.01", "--momentum", "0.937", "--weight-decay",
+                  "0.0005"]
+    return flags
+
+
+def phase_yolo_runs(card, work, launches):
+    """Phase 10b: yolo_train on a synthetic set written by data/synth.py
+    (SYNTH_SPLITS images at the generator's mixed native sizes):
+    yolov5s-mini at 416, batch 16 of nominal 64 (accumulate 4), 3 epochs
+    with EMA, mosaic and BN burn-in 2 (finite losses, the mAP computed,
+    best.npz served by build_detector on the card), its --resume to a 4th
+    epoch, and yolov4-tiny-mini 1 epoch --rect and 1 --multi-scale; each
+    run's ACFF launches counted from 0 (none)."""
+    from rtdm_tpu_torch.cli import yolo_train
+    from rtdm_tpu_torch.data.example_set import write_engine_as_cfg
+    from rtdm_tpu_torch.data.synth import generate_detection_dataset
+    from rtdm_tpu_torch.export.detector import DetectorSpec, build_detector
+    t0 = time.perf_counter()
+    data, _ = generate_detection_dataset(work / "synth", *SYNTH_SPLITS,
+                                         seed=SEED)
+    say(f"synthetic set: {SYNTH_SPLITS[0]} + {SYNTH_SPLITS[1]} images "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    engines = {e: write_engine_as_cfg(ENGINES / e, work / "yolo_cfg")
+               for e in DETECTORS}
+    cfg5, w5 = engines["yolov5s-mini_int8"]
+    cfg3, w3 = engines["yolov4-tiny-mini_int8"]
+    out5 = work / "yolo_v5"
+    runs = {
+        "v5s ema mosaic": _yolo_flags(cfg5, w5, data, out5, True)
+        + ["--epochs", "3", "--ema", "--bn-burn-in", "2", "--no-strip"],
+        "v5s resume": _yolo_flags(cfg5, w5, data, out5, True)
+        + ["--epochs", "4", "--ema", "--bn-burn-in", "2", "--resume"],
+        "v4-tiny rect": _yolo_flags(cfg3, w3, data, work / "yolo_rect",
+                                    False) + ["--epochs", "1", "--rect"],
+        "v4-tiny multi-scale": _yolo_flags(cfg3, w3, data,
+                                           work / "yolo_ms", False)
+        + ["--epochs", "1", "--multi-scale"],
+    }
+    records = {}
+    for name, argv in runs.items():
+        _count_from_zero()
+        t0 = time.perf_counter()
+        res, _ = _quiet(yolo_train.main, argv)
+        seconds = time.perf_counter() - t0
+        _read_launches(f"yolo_train/{name}", launches, _only("bf16", 0))
+        losses = [h["loss"] for h in res["history"]]
+        ev = res["last_eval"]
+        records[name] = {"seconds": seconds, "losses": losses,
+                         "map50": ev["map50"], "map": ev["map"],
+                         "epochs": len(res["history"])}
+        say(f"yolo_train {name}: {len(losses)} epochs, losses "
+            f"{[[round(v, 4) for v in lv] for lv in losses]}, P "
+            f"{ev['mp']:.3f} R {ev['mr']:.3f} mAP@0.5 {ev['map50']:.4f}, "
+            f"{seconds:.1f} s, 0 ACFF launches [{card}]")
+        if res["aborted"] or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"yolo_train {name}: non-finite loss")
+        if name == "v5s resume" and len(res["history"]) != 4:
+            raise AssertionError("--resume did not continue at epoch 4")
+    det = build_detector(cfg5, str(out5 / "best.npz"), DetectorSpec(
+        cfg_name="yolov5s.yaml", quant="fp32"), batch_size=4, num_classes=2,
+        device="cuda")
+    frames = np.ascontiguousarray(_yolo_golden()["images"][:4])
+    got, count = det(frames)
+    records["best_npz_detector"] = {"counts": count.tolist()}
+    say(f"best.npz in build_detector on the card: counts {count.tolist()}")
+    if not np.isfinite(got).all():
+        raise AssertionError("the trained detector gave non-finite rows")
+    return records, data, engines
+
+
+def phase_yolo_timing(card, data, engines):
+    """Phase 10c: yolov5s-mini at 416, fp32 and bf16: the train step at
+    batch 16 (accumulate 1) and 64 (accumulate 4), median and p90 of
+    YOLO_TIMED calls after YOLO_WARM, images/s, peak memory; the host
+    loader's images/s with mosaic, apart from the step; a profiler split of
+    one bf16 step at batch 16; the eval pass's ms per image."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from rtdm_tpu_torch.cli import yolo_train as yt
+    from rtdm_tpu_torch.data.odder import (DetectionBatchLoader,
+                                           DetectionDataset, load_data_spec)
+    from rtdm_tpu_torch.train.ema import ema_init
+    cfg5, w5 = engines["yolov5s-mini_int8"]
+    spec = load_data_spec(data)
+    train_ds = DetectionDataset(spec["train"], 416, base_dir=spec["base"],
+                                train=True, seed=SEED, num_classes=2)
+    loader = DetectionBatchLoader(train_ds, 16, shuffle=True, drop_last=True,
+                                  num_workers=8, seed=SEED)
+    t0 = time.perf_counter()
+    batches = [b for b, _ in loader]
+    load_s = time.perf_counter() - t0
+    n_img = 16 * len(batches)
+    records = {"loader_images_per_s": n_img / load_s}
+    say(f"host loader with mosaic at 416, 8 threads: {n_img} images in "
+        f"{load_s:.3f} s, {n_img / load_s:.1f} images/s [{card}]")
+    big = {k: np.concatenate([b[k] for b in batches[:4]]) for k in
+           ("image", "labels", "num_labels")}
+    args = yt.parse_args(["--cfg", cfg5, "--weights", w5, "--device",
+                          "cuda", "--lr0", "0.01", "--momentum", "0.937"])
+    for precision in ("fp32", "bf16"):
+        dtype = torch.bfloat16 if precision == "bf16" else torch.float32
+        for batch, acc in ((16, 1), (64, 4)):
+            model, heads = yt.load_model(cfg5, w5, 416, 2, "cuda")
+            loss_fn, hyp = yt.build_loss(args, {}, heads, 2, True)
+            opt = yt.build_optimizer(args, model, True, {}, 100, 1000)
+            step = yt.make_train_step(model, heads, loss_fn, hyp, dtype,
+                                      acc, 416, ema_init(model))
+            x = torch.from_numpy(big["image"][:batch]).cuda()
+            y = torch.from_numpy(big["labels"][:batch]).cuda()
+            n = torch.from_numpy(big["num_labels"][:batch]).cuda()
+            for it in range(YOLO_WARM):
+                step(opt, x, y, n, it, SEED, 416)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            samples = []
+            for it in range(YOLO_TIMED):
+                t0 = time.perf_counter()
+                loss, _, _ = step(opt, x, y, n, it, SEED, 416)
+                float(loss)
+                samples.append((time.perf_counter() - t0) * 1e3)
+            med, p90 = _percentiles(samples)
+            mem = torch.cuda.max_memory_allocated()
+            records[f"{precision}/{batch}"] = {
+                "step_ms_median": med, "step_ms_p90": p90,
+                "images_per_s": batch * 1e3 / med, "peak_memory_B": mem}
+            say(f"yolo train step {precision} batch {batch} (accumulate "
+                f"{acc}, EMA): median {med:.3f} ms, p90 {p90:.3f} ms "
+                f"(n={YOLO_TIMED}, host clock), {batch * 1e3 / med:.1f} "
+                f"images/s, peak memory {mem} B [{card}]")
+            if precision == "bf16" and batch == 16:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    loss, _, _ = step(opt, x, y, n, 99, SEED, 416)
+                    float(loss)
+                    wall_us = (time.perf_counter() - t0) * 1e6
+                rows = sorted(((e.self_device_time_total, e.count, e.key)
+                               for e in prof.key_averages()
+                               if e.device_type == DeviceType.CUDA
+                               and e.self_device_time_total > 0),
+                              reverse=True)
+                busy = sum(r[0] for r in rows)
+                shares = {}
+                for us, _, name in rows:
+                    kind = next(k for k, pattern in YOLO_KERNEL_KINDS
+                                if re.search(pattern, name))
+                    shares[kind] = shares.get(kind, 0.0) + us
+                records["profile_bf16_16"] = {
+                    "wall_us": wall_us, "busy_us": busy,
+                    "launches": sum(r[1] for r in rows),
+                    "by_kind_us": shares,
+                    "top": [(nm[:80], us, c) for us, c, nm in rows[:12]]}
+                if not rows:
+                    say("yolo train profile: no device time recorded; "
+                        "breakdown not measured")
+                else:
+                    say(f"yolo train profile bf16 batch 16, one step: "
+                        f"device busy {busy:.1f} us of {wall_us:.1f} us host "
+                        f"clock ({100 * busy / wall_us:.1f}% busy), "
+                        f"{records['profile_bf16_16']['launches']} kernels "
+                        f"[{card}]")
+                    for kind, us in sorted(shares.items(),
+                                           key=lambda kv: -kv[1]):
+                        say(f"  {us:9.1f} us {100 * us / busy:5.1f}% {kind}")
+                    for us, c, nm in rows[:12]:
+                        say(f"  {us:9.1f} us {100 * us / busy:5.1f}% x{c} "
+                            f"{nm[:90]}")
+            if batch == 16:
+                ev = yt.EvalStep(model, heads, dtype, 416)
+                ev.load(model.state_dict())
+                ev(x)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    det, count = ev(x)
+                    count.cpu()
+                ms = (time.perf_counter() - t0) * 1e3 / (3 * batch)
+                records[f"{precision}/eval_ms_per_image"] = ms
+                say(f"yolo eval pass {precision} (batch {batch}, decode + NMS "
+                    f"multi-label): {ms:.3f} ms/image [{card}]")
+            del model, opt, step
+            torch.cuda.empty_cache()
+    return records
+
+
+def phase_yolo_training(card, work):
+    """Phase 10: detector training on the card (10a-10c). Returns the
+    records and, by path, the ACFF launches of the yolo_train runs."""
+    t0 = time.perf_counter()
+    launches = {}
+    records = {"golden": phase_yolo_golden(card, work)}
+    records["runs"], data, engines = phase_yolo_runs(card, work, launches)
+    records["timing"] = phase_yolo_timing(card, data, engines)
+    records["seconds"] = time.perf_counter() - t0
+    say(f"phase 10: {records['seconds']:.1f} s")
+    return records, launches
+
+
 def main() -> int:
     if not (ROOT / "rtdm_tpu_torch").is_dir() or not GOLDEN.exists():
         print("chip_smoke.py runs from the root of a checkout of the "
@@ -2311,7 +2776,10 @@ def main() -> int:
     # 9. training
     training, train_launches = phase_training(card, work, golden)
 
-    # 9. kernels line: one entry a kernel (the QDQ mode of the bf16 kernel
+    # 10. detector training
+    yolo_training, yolo_launches = phase_yolo_training(card, work)
+
+    # 11. kernels line: one entry a kernel (the QDQ mode of the bf16 kernel
     # its own), summed over the ACFF blocks of one forward of its main path
     # (the Squeeze_ErNET engine of its precision), launches counted in that
     # forward; the bf16 kernel's entry also lists the veto's launches in
@@ -2349,7 +2817,9 @@ def main() -> int:
                 **{p: n[quant] for p, n in serving_launches.items()
                    if n[quant]},
                 **{p: n[quant] for p, n in train_launches.items()
-                   if n[quant]}},
+                   if n[quant]},
+                # the detector trainer launches no hand kernel: 0 on each
+                **{p: n[quant] for p, n in yolo_launches.items()}},
             "per_shape": [r for r in records if r["quant"] == quant],
         })
         if quant in real:
@@ -2400,6 +2870,8 @@ def main() -> int:
     say("ACFF launches on phase 8's paths: " + json.dumps(serving_launches))
     say("training: " + json.dumps(training, default=float))
     say("ACFF launches on phase 9's paths: " + json.dumps(train_launches))
+    say("detector training: " + json.dumps(yolo_training, default=float))
+    say("ACFF launches on phase 10's paths: " + json.dumps(yolo_launches))
     say(f"fault 2: {len(fault2_rows)} shapes x modes held to the plain "
         f"version")
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,15 +1,18 @@
 """ODDER detection data: darknet-style lists, YOLO label txts, letterbox.
 
-Counterpart of ``rtdm_tpu/data/odder.py``, its eval side: ``.data`` files
-and v5 data yamls (``load_data_spec``), image lists, label files with the
-reference's checks, the letterbox (``letterbox_image``, PIL bilinear, gray
-114 border), rect buckets (``minimal_rect_shape``, ``rect_batch_plan``),
-the ``DetectionDataset`` eval sample and the threaded
-``DetectionBatchLoader``. Frames are decoded with PIL (the JAX package's
-native libjpeg decode, ``data/native_io.py``, is not ported yet, so a
-``.jpg`` may decode to other pixels there; a ``.png`` decodes alike). The
-training sample (mosaic and the augmentations) waits for the training
-slice.
+Counterpart of ``rtdm_tpu/data/odder.py``: ``.data`` files and v5 data
+yamls (``load_data_spec``, read by ``utils/yaml_io.py``), image lists,
+label files with the reference's checks, the letterbox
+(``letterbox_image``, PIL bilinear, gray 114 border), rect buckets
+(``minimal_rect_shape``, ``rect_batch_plan``), the ``DetectionDataset``
+eval and training samples (mosaic, mosaic9, mixup, the affine warp, HSV,
+cutout and the flip from ``data/yolo_augment.py``, each draw from the
+sample's generator in the reference's order), ``image_weights`` and the
+threaded ``DetectionBatchLoader`` (its epoch order from
+``default_rng(seed + epoch)``, shuffled or drawn by image weight). Frames
+are decoded with PIL (the JAX package's native libjpeg decode,
+``data/native_io.py``, is not ported yet, so a ``.jpg`` may decode to
+other pixels there; a ``.png`` decodes alike).
 """
 
 from __future__ import annotations
@@ -88,9 +91,8 @@ def load_data_spec(path: str) -> Dict[str, object]:
     path = os.path.abspath(path)
     base = os.path.dirname(os.path.dirname(path))
     if path.endswith((".yaml", ".yml")):
-        import yaml as _yaml
-        with open(path) as f:
-            d = _yaml.safe_load(f) or {}
+        from rtdm_tpu_torch.utils import yaml_io
+        d = yaml_io.load(path) or {}
         names = d.get("names")
         nc = int(d.get("nc", len(names) if names else 2))
         spec: Dict[str, object] = {"classes": nc, "names": names,
@@ -241,17 +243,16 @@ class DetectionDataset:
 
     def __init__(self, list_file: str, img_size: int = 416,
                  max_labels: int = 100, base_dir: Optional[str] = None,
-                 train: bool = False, num_classes: Optional[int] = None,
-                 single_cls: bool = False,
+                 train: bool = False,
+                 aug_hyp: Optional[Dict[str, float]] = None,
+                 seed: int = 0, num_classes: Optional[int] = None,
+                 single_cls: bool = False, cache_images: bool = False,
                  rect: bool = False, batch_size: int = 8,
                  stride: int = 32, rect_pad: float = 0.0,
                  eval_scaleup: bool = False):
-        if train:
-            raise NotImplementedError(
-                "the training sample (mosaic and the augmentations) is "
-                "ported with training: ROADMAP queue 1, item 5")
         self.num_classes = num_classes
         self.single_cls = single_cls
+        self.cache_images = cache_images
         self.train = train
         # Family-gated eval geometry: the v3 reference only ever scales
         # DOWN at eval (datasets.py:517 `r < 1 or (self.augment and
@@ -260,6 +261,8 @@ class DetectionDataset:
         # images smaller than img_size at eval. eval_scaleup=True keeps
         # the uncapped img_size/max(h,w) fit at eval (v5 families).
         self.eval_scaleup = bool(eval_scaleup)
+        self.aug_hyp = aug_hyp or {}
+        self._rng = np.random.default_rng(seed)
         if isinstance(list_file, (str, os.PathLike)):
             # default base = two levels above the list (the darknet layout
             # data/custom/test-min.txt -> data/..); shallower paths fall
@@ -279,6 +282,12 @@ class DetectionDataset:
         self.stats = {"found": 0, "missing": 0, "empty": 0, "corrupt": 0,
                       "duplicate_rows": 0}
         self.labels = [self._load_label(p) for p in self.image_paths]
+        # --cache-images (yolov3/utils/datasets.py:383-391): decoded
+        # original-size frames held in RAM, filled on first touch; and the
+        # mosaic tiles, resized, keyed by (idx, long side)
+        self._img_cache: List[Optional[np.ndarray]] = (
+            [None] * len(self.image_paths) if cache_images else [])
+        self._scaled_cache: Dict[Tuple[int, int], np.ndarray] = {}
         # Rectangular batches (datasets.py:285-316): images sorted by
         # aspect ratio; each batch letterboxed to one stride-multiple
         # (h, w) bucket instead of the full square: the bucket set is small
@@ -395,16 +404,100 @@ class DetectionDataset:
         self.stats["found"] += 1
         return dedup
 
+    def image_weights(self, class_weights: np.ndarray) -> np.ndarray:
+        """Per-image sampling weights from per-class weights
+        (labels_to_image_weights, yolov3/utils/utils.py; train.py:236-239)."""
+        nc = len(class_weights)
+        w = np.zeros(len(self), np.float64)
+        for i, lab in enumerate(self.labels):
+            counts = np.bincount(lab[:, 0].astype(int), minlength=nc) \
+                if len(lab) else np.zeros(nc)
+            w[i] = float((counts * class_weights).sum())
+        if w.sum() <= 0:
+            return np.ones(len(self)) / max(len(self), 1)
+        return w / w.sum()
+
     def load(self, idx: int,
              rng: Optional[np.random.Generator] = None) -> Dict[str, np.ndarray]:
-        """The eval sample of image ``idx`` (``rng`` is not read: an eval
-        sample draws nothing)."""
+        """Sample ``idx``: the training sample (drawn from ``rng``, else the
+        dataset's own generator) or the eval sample, which draws nothing."""
+        if self.train:
+            return self._load_train(idx, rng or self._rng)
         return self._load_eval(idx)
 
+    def _load_train(self, idx: int,
+                    rng: np.random.Generator) -> Dict[str, np.ndarray]:
+        """Mosaic + affine + HSV + hflip training sample (datasets.py
+        __getitem__ train path); labels come back as class + pixel cxcywh.
+        Rect mode has no mosaic (datasets.py:283): every sample letterboxes
+        to its bucket, then takes the other augmentations."""
+        from rtdm_tpu_torch.data.yolo_augment import (
+            DEFAULT_AUG_HYP, augment_hsv, cutout, load_mosaic, load_mosaic9,
+            mixup, random_affine)
+
+        hyp = {**DEFAULT_AUG_HYP, **self.aug_hyp}
+        if not self.rect and rng.random() < hyp["mosaic"]:
+            if rng.random() < hyp.get("mosaic9", 0.0):
+                img, lab_xyxy = load_mosaic9(self, idx, rng, hyp)
+            else:
+                img, lab_xyxy = load_mosaic(self, idx, rng, hyp)
+            if rng.random() < hyp.get("mixup", 0.0):
+                idx2 = int(rng.integers(0, len(self)))
+                img2, lab2 = load_mosaic(self, idx2, rng, hyp)
+                img, lab_xyxy = mixup(img, lab_xyxy, img2, lab2, rng)
+        else:
+            sample = self._load_eval(idx)
+            img = sample["image"]
+            n = int(sample["num_labels"])
+            cxcywh = sample["labels"][:n]
+            lab_xyxy = np.zeros((n, 5), np.float32)
+            lab_xyxy[:, 0] = cxcywh[:, 0]
+            lab_xyxy[:, 1] = cxcywh[:, 1] - cxcywh[:, 3] / 2
+            lab_xyxy[:, 2] = cxcywh[:, 2] - cxcywh[:, 4] / 2
+            lab_xyxy[:, 3] = cxcywh[:, 1] + cxcywh[:, 3] / 2
+            lab_xyxy[:, 4] = cxcywh[:, 2] + cxcywh[:, 4] / 2
+            # the reference warps the non-mosaic sample too, with the
+            # degenerate-box filter (datasets.py:451-458)
+            img, new_boxes, new_cls = random_affine(
+                img, lab_xyxy[:, 1:5], lab_xyxy[:, 0],
+                hyp["degrees"], hyp["translate"], hyp["scale"],
+                hyp["shear"], rng)
+            lab_xyxy = (np.concatenate(
+                [new_cls[:, None], new_boxes], axis=1).astype(np.float32)
+                if len(new_boxes) else np.zeros((0, 5), np.float32))
+        img = augment_hsv(img, hyp["hsv_h"], hyp["hsv_s"], hyp["hsv_v"], rng)
+        if rng.random() < hyp.get("cutout", 0.0):
+            img, lab_xyxy = cutout(img, lab_xyxy, rng)
+        if rng.random() < hyp["fliplr"]:
+            img = img[:, ::-1].copy()
+            if len(lab_xyxy):
+                w = img.shape[1]
+                x1 = lab_xyxy[:, 1].copy()
+                lab_xyxy[:, 1] = w - lab_xyxy[:, 3]
+                lab_xyxy[:, 3] = w - x1
+
+        n = min(len(lab_xyxy), self.max_labels)
+        labels = np.zeros((self.max_labels, 5), np.float32)
+        if n:
+            sel = lab_xyxy[:n]
+            labels[:n, 0] = sel[:, 0]
+            labels[:n, 1] = (sel[:, 1] + sel[:, 3]) / 2
+            labels[:n, 2] = (sel[:, 2] + sel[:, 4]) / 2
+            labels[:n, 3] = sel[:, 3] - sel[:, 1]
+            labels[:n, 4] = sel[:, 4] - sel[:, 2]
+        return {"image": np.ascontiguousarray(img), "labels": labels,
+                "num_labels": np.int32(n),
+                "orig_hw": np.array(img.shape[:2], np.int32),
+                # train labels are in the augmented image's pixels already
+                "letterbox": np.array([1.0, 0.0, 0.0], np.float32),
+                "index": np.int32(idx)}
+
     def load_raw(self, idx: int) -> np.ndarray:
-        """Decoded original-size RGB uint8 frame. Corrupt/missing files fall
-        back to a black img_size square (aider.py:49-56 blank-frame
-        convention)."""
+        """Decoded original-size RGB uint8 frame, RAM-cached with
+        ``cache_images``. Corrupt/missing files fall back to a black
+        img_size square (aider.py:49-56 blank-frame convention)."""
+        if self.cache_images and self._img_cache[idx] is not None:
+            return self._img_cache[idx]
         from PIL import Image
         try:
             with open(self.image_paths[idx], "rb") as f:
@@ -412,6 +505,29 @@ class DetectionDataset:
         except Exception as e:
             logger.warning("failed to load %s: %s", self.image_paths[idx], e)
             img = np.zeros((self.img_size, self.img_size, 3), np.uint8)
+        if self.cache_images:
+            self._img_cache[idx] = img
+        return img
+
+    def load_scaled(self, idx: int, size: int) -> np.ndarray:
+        """The frame with its long side resized to ``size``, aspect kept,
+        no padding (the mosaic tile, load_image semantics,
+        yolov3/utils/datasets.py:393-404), by PIL bilinear; cached with
+        ``cache_images``."""
+        if self.cache_images:
+            hit = self._scaled_cache.get((idx, int(size)))
+            if hit is not None:
+                return hit
+        img = self.load_raw(idx)
+        h0, w0 = img.shape[:2]
+        gain = size / max(h0, w0)
+        if gain != 1:
+            from PIL import Image
+            img = np.asarray(Image.fromarray(img).resize(
+                (max(int(w0 * gain), 1), max(int(h0 * gain), 1)),
+                Image.BILINEAR), np.uint8)
+        if self.cache_images:
+            self._scaled_cache[(idx, int(size))] = img
         return img
 
     def _load_eval(self, idx: int) -> Dict[str, np.ndarray]:

@@ -83,17 +83,26 @@ class DetectorSpec:
         self.quant = q
 
 
-def resize_weights(m: int, n: int, device="cpu") -> torch.Tensor:
+def resize_weights(m: int, n: int, device="cpu",
+                   fused: bool = False) -> torch.Tensor:
     """(m, n) fp32 weights that resize an axis of m samples to n, as
     ``jax.image.scale_and_translate`` computes them for the bilinear
     (triangle) kernel with antialiasing: on a downscale the triangle is
     widened by 1/scale; each output's weights are normalised to sum 1 and
-    zeroed where its sample lies outside the input."""
+    zeroed where its sample lies outside the input. ``fused`` computes
+    them as the jitted function does (the sample position one fused
+    multiply-add, the division by the kernel's scale a multiply by its
+    fp32 reciprocal), else as the eager one."""
     inv = torch.tensor(1.0 / (n / m), dtype=torch.float32)
     kscale = torch.clamp(inv, min=1.0)
-    sample = (torch.arange(n, dtype=torch.float32) + 0.5) * inv - 0.5
-    dist = (sample[None, :] - torch.arange(m, dtype=torch.float32)[:, None]
-            ).abs() / kscale
+    pos = torch.arange(n, dtype=torch.float32) + 0.5
+    grid = torch.arange(m, dtype=torch.float32)[:, None]
+    if fused:
+        sample = torch.addcmul(torch.tensor(-0.5), pos, inv)
+        dist = (sample[None, :] - grid).abs() * torch.reciprocal(kscale)
+    else:
+        sample = pos * inv - 0.5
+        dist = (sample[None, :] - grid).abs() / kscale
     w = torch.clamp(1.0 - dist, min=0.0)
     total = w.sum(0, keepdim=True)
     eps = 1000.0 * float(np.finfo(np.float32).eps)
@@ -104,7 +113,8 @@ def resize_weights(m: int, n: int, device="cpu") -> torch.Tensor:
     return torch.where(inside[None, :], w, torch.zeros_like(w)).to(device)
 
 
-def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+def resize_bilinear(x: torch.Tensor, size: Tuple[int, int],
+                    fused: bool = False) -> torch.Tensor:
     """``jax.image.resize(x, (b, h, w, c), "bilinear")`` of an NHWC batch:
     the height then the width axis contracted with ``resize_weights``
     (cast to x's dtype, as JAX casts them), each product summed in fp32
@@ -115,7 +125,7 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
         m = out.shape[axis]
         if m == n:
             continue
-        wt = resize_weights(m, n, x.device).to(x.dtype).float()
+        wt = resize_weights(m, n, x.device, fused).to(x.dtype).float()
         eq = "bmwc,mn->bnwc" if axis == 1 else "bhmc,mn->bhnc"
         out = torch.einsum(eq, out.float(), wt).to(x.dtype)
     return out

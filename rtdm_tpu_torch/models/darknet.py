@@ -7,13 +7,16 @@ module names (``l{i}_conv``, ``l{i}_bn``, ``l{i}_act``,
 weighted shortcut's ``l{i}_w``), so a JAX variables tree loads one leaf per
 tensor (``models/io.py``):
 
-- convolutional: conv (pad k//2 if ``pad``, groups) + BN (eps 1e-4) +
+- convolutional: conv (pad k//2 if ``pad``, groups) + BN (eps 1e-4,
+  momentum 0.003) +
   activation (leaky 0.1, swish, mish, relu, hardswish, relu6, logistic,
   linear, or the parametric frelu / aconc / meta_aconc). A conv followed by
   BN leaves its product unrounded for the BN, as the compiled JAX graph
   reads it in fp32;
 - acff: the detector's additive ACFF (three dilated depthwise convs summed,
-  1x1 fuse, LeakyReLU(0.01), BN), in torch ops;
+  1x1 fuse, LeakyReLU(0.01), BN with torch's momentum 0.1, then dropout at
+  ``dropout_rate`` in training, its mask from the generator that
+  ``layers.set_dropout_generator`` sets), in torch ops;
 - maxpool: pad (k-1)//2 with -inf; the size-2 stride-1 pool pads the
   bottom and right with zeros (the reference's ZeroPad2d);
 - upsample: integer nearest-neighbour repeat;
@@ -38,8 +41,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from rtdm_tpu_torch.models.layers import (AconC, BatchNorm, Conv,
-                                          DepthwiseConv, FReLU, MetaAconC,
-                                          leaky_relu, silu, softplus)
+                                          DepthwiseConv, Dropout, FReLU,
+                                          MetaAconC, leaky_relu, silu,
+                                          softplus)
 from rtdm_tpu_torch.ops.convpool import max_pool2d
 
 PARAMETRIC_ACTIVATIONS = ("frelu", "aconc", "meta_aconc")
@@ -136,7 +140,8 @@ class Darknet(nn.Module):
     """cfg-driven detector: ``forward`` returns the raw NHWC map of every
     [yolo] block (channels na*(5+nc)); ``heads`` holds their metadata."""
 
-    def __init__(self, cfg_text: str, in_channels: int = 3):
+    def __init__(self, cfg_text: str, in_channels: int = 3,
+                 dropout_rate: float = 0.2):
         super().__init__()
         self.cfg_text = cfg_text
         blocks = parse_darknet_cfg(cfg_text)
@@ -156,7 +161,7 @@ class Darknet(nn.Module):
                 self.add_module(f"l{i}_conv", conv)
                 c = int(d["filters"])
                 if bn:
-                    self.add_module(f"l{i}_bn", BatchNorm(c, 1e-4))
+                    self.add_module(f"l{i}_bn", BatchNorm(c, 1e-4, 0.003))
                 act = d.get("activation", "linear")
                 if act == "frelu":
                     self.add_module(f"l{i}_act", FReLU(c))
@@ -173,6 +178,7 @@ class Darknet(nn.Module):
                         c, k, 1, padding=dil - 1, dilation=dil))
                 self.add_module(f"l{i}_acff_fused", Conv(c, o, 1))
                 self.add_module(f"l{i}_acff_bn", BatchNorm(o))
+                self.add_module(f"l{i}_acff_drop", Dropout(dropout_rate))
                 c = o
             elif t == "route":
                 g = int(d.get("groups", 1))
@@ -239,7 +245,8 @@ class Darknet(nn.Module):
                + getattr(self, f"l{i}_acff_conv2")(x)
                + getattr(self, f"l{i}_acff_conv3")(x))
         out = leaky_relu(getattr(self, f"l{i}_acff_fused")(out), 0.01)
-        return getattr(self, f"l{i}_acff_bn")(out)
+        return getattr(self, f"l{i}_acff_drop")(
+            getattr(self, f"l{i}_acff_bn")(out))
 
     def _shortcut(self, i: int, d: Dict[str, Any], x: torch.Tensor,
                   outputs: List[Optional[torch.Tensor]]) -> torch.Tensor:

@@ -51,6 +51,12 @@ def _zeros(n: int, use: bool) -> Optional[nn.Parameter]:
     return nn.Parameter(torch.zeros(n)) if use else None
 
 
+def acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The dtype a layer accumulates ``x``'s dtype in: fp32, or float64 for
+    a float64 x (the float64 readings of the training gates)."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
 def _add_bias(y: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
     """y + bias in y's dtype, after the product is rounded to it, as the JAX
     layers add theirs (a bf16 layer rounds twice)."""
@@ -88,7 +94,8 @@ class Conv(nn.Module):
         x = x.to(self.weight.dtype)
         args = (None, self.stride, self.padding, self.dilation, self.groups)
         if not (self.round_output or self.bias is not None):
-            return conv2d(x.float(), self.weight.float(), *args)
+            acc = acc_dtype(x)
+            return conv2d(x.to(acc), self.weight.to(acc), *args)
         if x.dtype == torch.bfloat16 and not x.is_cuda:
             # torch's fp32 conv sums as XLA:CPU's does where oneDNN's bf16
             # conv does not
@@ -133,13 +140,16 @@ class BatchNorm(nn.Module):
     ``BatchNorm(train=True)`` computes them: ``mean`` and ``mean2`` (the
     mean of x²) over (B, H, W), the biased ``var = mean2 - mean²`` (not
     torch's two-pass or Welford variance), and updates the running
-    statistics with ``momentum`` and the unbiased ``var * n / (n - 1)``.
-    At inference it uses the running statistics as stored."""
+    statistics with ``momentum`` and the unbiased ``var * n / (n - 1)``,
+    unless ``update_stats`` is False (the detectors' BN burn-in,
+    ``set_bn_update``): then the batch still normalizes and its statistics
+    are dropped. At inference it uses the running statistics as stored."""
 
     def __init__(self, channels: int, epsilon: float = 1e-5,
                  momentum: float = 0.1):
         super().__init__()
         self.epsilon, self.momentum = epsilon, momentum
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -148,17 +158,20 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return self.affine(x).to(x.dtype)
-        xf = x.float()
+        acc = acc_dtype(x)
+        xf = x.to(acc)
         mean = xf.mean((0, 1, 2))
         var = xf.square().mean((0, 1, 2)) - mean.square()
         n = x.shape[0] * x.shape[1] * x.shape[2]
-        with torch.no_grad():
-            m = self.momentum
-            self.running_mean.copy_((1 - m) * self.running_mean + m * mean)
-            self.running_var.copy_((1 - m) * self.running_var
-                                   + m * (var * (n / max(n - 1, 1))))
-        inv = torch.rsqrt(var + self.epsilon) * self.weight.float()
-        return torch.addcmul(self.bias.float(), xf - mean, inv).to(x.dtype)
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_((1 - m) * self.running_mean
+                                        + m * mean)
+                self.running_var.copy_((1 - m) * self.running_var
+                                       + m * (var * (n / max(n - 1, 1))))
+        inv = torch.rsqrt(var + self.epsilon) * self.weight.to(acc)
+        return torch.addcmul(self.bias.to(acc), xf - mean, inv).to(x.dtype)
 
     def affine(self, x: torch.Tensor) -> torch.Tensor:
         """The fp32 result at inference, before the cast to x's dtype, as
@@ -196,6 +209,14 @@ class Dropout(nn.Module):
                           device=x.device) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
+
+
+def set_bn_update(model: nn.Module, on: bool) -> None:
+    """Every ``BatchNorm`` of ``model`` updates its running statistics in
+    training (``on``) or keeps them as they are."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.update_stats = on
 
 
 def set_dropout_generator(model: nn.Module,
@@ -268,13 +289,14 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 class FReLU(nn.Module):
-    """Funnel activation max(x, BN(dwconv_kxk(x))), BN eps 1e-3."""
+    """Funnel activation max(x, BN(dwconv_kxk(x))), BN eps 1e-3 and
+    momentum 0.03 (v5's ``initialize_weights`` sets both on every BN)."""
 
     def __init__(self, channels: int, k: int = 3):
         super().__init__()
         self.conv = DepthwiseConv(channels, k, 1, padding=k // 2,
                                   use_bias=False)
-        self.bn = BatchNorm(channels, epsilon=1e-3)
+        self.bn = BatchNorm(channels, epsilon=1e-3, momentum=0.03)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.maximum(x, self.bn(self.conv(x)))

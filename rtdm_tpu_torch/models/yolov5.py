@@ -1,8 +1,8 @@
 """YOLOv5 yaml detectors, NHWC.
 
 Counterpart of ``rtdm_tpu/models/yolov5.py`` for the blocks that
-``yolov5s.yaml`` uses: ``ConvBnSiLU`` (conv without bias, BN eps 1e-3,
-SiLU), ``Focus`` (2x2 space-to-depth, then a conv), ``Bottleneck``,
+``yolov5s.yaml`` uses: ``ConvBnSiLU`` (conv without bias, BN eps 1e-3
+and momentum 0.03, SiLU), ``Focus`` (2x2 space-to-depth, then a conv), ``Bottleneck``,
 ``C3``, ``SPP``, ``Concat``, ``nn.Upsample`` and ``Detect`` (a 1x1 conv
 with bias per level, raw maps out, with v5 decode metadata). Module names
 follow the JAX tree (``m{i}``, ``m{i}_{j}`` for an n>1 repeat of a plain
@@ -19,7 +19,8 @@ bf16 first. Every other consumer (a residual add, a concat, a pool, an
 upsample) rounds it to bf16 first.
 
 ``parse_v5_yaml`` reads the yaml subset these model files use (a mapping
-of scalars, flow lists and block lists of flow lists) without PyYAML. The
+of scalars, flow lists and block lists of flow lists) without PyYAML
+(``utils/yaml_io.py``). The
 rest of the v5 block zoo (BottleneckCSP, C3TR/TransformerBlock, DWConv,
 CrossConv, GhostConv/GhostBottleneck, MixConv2d, Sum, Classify,
 Contract/Expand) and the ``up_to`` prefix forward are not ported yet and
@@ -29,7 +30,6 @@ raise.
 from __future__ import annotations
 
 import math
-import re
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -37,8 +37,9 @@ import torch
 from torch import nn
 
 from rtdm_tpu_torch.models.darknet import YoloHead
-from rtdm_tpu_torch.models.layers import BatchNorm, Conv, silu
+from rtdm_tpu_torch.models.layers import BatchNorm, Conv, acc_dtype, silu
 from rtdm_tpu_torch.ops.convpool import max_pool2d
+from rtdm_tpu_torch.utils import yaml_io
 
 NOT_PORTED = ("BottleneckCSP", "C3TR", "DWConv", "CrossConv", "GhostConv",
               "GhostBottleneck", "MixConv2d", "Sum", "Classify", "Contract",
@@ -57,96 +58,12 @@ def autopad(k, p=None):
     return k // 2
 
 
-# ---------------------------------------------------------------------------
-# the yaml subset of the v5 model files
-
-_TOKEN = re.compile(r"\s*(\[|\]|,|'[^']*'|\"[^\"]*\"|[^\[\],]+)")
-
-
-def _scalar(tok: str):
-    tok = tok.strip()
-    if tok[:1] in ("'", '"'):
-        return tok[1:-1]
-    if tok in ("true", "True", "TRUE"):
-        return True
-    if tok in ("false", "False", "FALSE"):
-        return False
-    if tok in ("null", "Null", "NULL", "~", ""):
-        return None
-    for cast in (int, float):
-        try:
-            return cast(tok)
-        except ValueError:
-            pass
-    return tok
-
-
-def _flow(text: str):
-    """A YAML flow value: nested [..] lists of scalars (trailing commas
-    allowed)."""
-    tokens = [t.strip() for t in _TOKEN.findall(text) if t.strip()]
-    pos = 0
-
-    def value():
-        nonlocal pos
-        tok = tokens[pos]
-        pos += 1
-        if tok != "[":
-            return _scalar(tok)
-        items = []
-        while tokens[pos] != "]":
-            items.append(value())
-            if tokens[pos] == ",":
-                pos += 1
-        pos += 1
-        return items
-
-    out = value()
-    if pos != len(tokens):
-        raise ValueError(f"unparsed yaml value: {text!r}")
-    return out
-
-
-def _strip_comment(line: str) -> str:
-    quote = None
-    for i, ch in enumerate(line):
-        if quote:
-            quote = None if ch == quote else quote
-        elif ch in ("'", '"'):
-            quote = ch
-        elif ch == "#":
-            return line[:i]
-    return line
-
-
 def parse_v5_yaml(yaml_text: str, nc_override: Optional[int] = None
                   ) -> Dict[str, Any]:
-    """The model file as a dict, as ``yaml.safe_load`` reads it: top-level
-    ``key: value`` lines, where a value is a scalar, a flow list (possibly
-    over several lines) or a block list of ``- `` items."""
-    out: Dict[str, Any] = {}
-    key, body = None, []
-
-    def close():
-        if key is None:
-            return
-        items = [ln.strip() for ln in body if ln.strip()]
-        if items and items[0].startswith("- "):
-            out[key] = [_flow(it[2:]) for it in items]
-        else:
-            out[key] = _flow(" ".join(items)) if items else None
-
-    for raw in yaml_text.splitlines():
-        line = _strip_comment(raw).rstrip()
-        if not line.strip():
-            continue
-        if not line[0].isspace() and ":" in line and not line.startswith("-"):
-            close()
-            key, rest = line.split(":", 1)
-            key, body = key.strip(), [rest]
-        else:
-            body.append(line)
-    close()
+    """The model file as a dict, as ``yaml.safe_load`` reads it
+    (``utils/yaml_io.py``), with ``nc`` replaced by ``nc_override`` if
+    given."""
+    out = yaml_io.loads(yaml_text)
     if nc_override is not None:
         out["nc"] = nc_override
     return out
@@ -205,13 +122,14 @@ class ConvBnSiLU(nn.Module):
         self.conv = Conv(c1, c2, k, s, autopad(k, p), groups=g,
                          use_bias=False)
         self.conv.round_output = False       # BN reads the product in fp32
-        self.bn = BatchNorm(c2, 1e-3)
+        self.bn = BatchNorm(c2, 1e-3, 0.03)
         self.act = act
         self.keep_fp32 = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.conv.weight.dtype
-        y = self.bn.affine(self.conv(x)).to(dtype)
+        y = self.conv(x)
+        y = (self.bn(y) if self.training else self.bn.affine(y)).to(dtype)
         if not self.act:
             return y
         return silu(y, round_output=not self.keep_fp32)
@@ -243,7 +161,8 @@ class Bottleneck(nn.Module):
         if not self.add:
             return out
         dtype = self.cv1.conv.weight.dtype
-        y = x.to(dtype).float() + out.to(dtype).float()
+        acc = acc_dtype(out)
+        y = x.to(dtype).to(acc) + out.to(dtype).to(acc)
         return y if self.keep_fp32 else y.to(dtype)
 
 

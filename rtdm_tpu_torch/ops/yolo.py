@@ -15,7 +15,8 @@ anchor-major ((b, na, ny, nx) order). Four decodes:
 The stride is per axis (input w / nx, input h / ny), so ``img_size`` may be
 an (h, w) pair. Everything runs in fp32 with the compiled reference's exp
 and sigmoid (``ops/numerics.py``) and its one fused multiply-add.
-``raw_to_train_layout`` waits for the training slice.
+``raw_to_train_layout`` gives the training loss its (B, na, ny, nx, no)
+view of a map.
 """
 
 from __future__ import annotations
@@ -79,3 +80,11 @@ def decode_all(raw_maps: Sequence[torch.Tensor], heads, img_size
                                   h.scale_x_y, h.new_coords,
                                   getattr(h, "v5", False))
                       for p, h in zip(raw_maps, heads)], 1)
+
+
+def raw_to_train_layout(p: torch.Tensor, na: int, num_classes: int
+                        ) -> torch.Tensor:
+    """(B, ny, nx, na*no) -> (B, na, ny, nx, no), the loss-side layout (a
+    view: no copy)."""
+    b, ny, nx, _ = p.shape
+    return p.reshape(b, ny, nx, na, num_classes + 5).permute(0, 3, 1, 2, 4)

@@ -4,8 +4,11 @@ Counterpart of ``rtdm_tpu/train/checkpoint.py`` with ``torch.save`` in
 place of Orbax: a tag (``last``, ``best``) is ``<tag>.pt``, the step count
 and the model's and optimizer's state dicts, beside the same
 ``<tag>.meta.json`` (epoch, best metrics, history, config) the JAX manager
-writes. ``restore`` loads with ``torch.load(weights_only=True)`` from the
-directory it was given and nowhere else.
+writes. ``save_tree`` / ``restore_tree`` store any tree of state dicts the
+same way (the detector trainer's full state: parameters and BatchNorm
+buffers, optimizer, EMA); ``remove`` deletes a tag and its metadata (the
+strip at the end of a run). Loads use ``torch.load(weights_only=True)``
+from the directory given and nowhere else.
 """
 
 from __future__ import annotations
@@ -58,6 +61,36 @@ class CheckpointManager:
             with open(meta_path) as f:
                 metadata = json.load(f)
         return state, metadata
+
+    def save_tree(self, tag: str, tree: Dict[str, Any],
+                  metadata: Optional[Dict[str, Any]] = None) -> str:
+        """Store ``tree`` (state dicts, tensors, numbers) under ``tag``."""
+        path = self._path(tag)
+        torch.save(tree, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        if metadata is not None:
+            with open(self._meta_path(tag), "w") as f:
+                json.dump(_jsonify(metadata), f, indent=2)
+        return path
+
+    def restore_tree(self, tag: str, device="cpu"
+                     ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+        """(tree, metadata) stored under ``tag``, tensors on ``device``."""
+        tree = torch.load(self._path(tag), map_location=device,
+                          weights_only=True)
+        metadata = {}
+        if os.path.exists(self._meta_path(tag)):
+            with open(self._meta_path(tag)) as f:
+                metadata = json.load(f)
+        return tree, metadata
+
+    def remove(self, tag: str) -> None:
+        for path in (self._path(tag), self._meta_path(tag)):
+            if os.path.exists(path):
+                os.remove(path)
+
+    def _meta_path(self, tag: str) -> str:
+        return os.path.join(self.directory, f"{tag}.meta.json")
 
     def exists(self, tag: str) -> bool:
         return os.path.isfile(self._path(tag))

@@ -5,14 +5,17 @@ curves (``plot_training_curves``: loss, accuracy, F1 and lr PNGs after
 training, matplotlib), the annotated batch mosaics of ``yolo_test
 --plot-dir`` (``plot_detection_batch``, PIL only; plot_images,
 yolov5/utils/plots.py:128) and the label-statistics panel
-(``plot_label_distribution``, matplotlib; plot_labels :285); matplotlib is
-imported where a panel is drawn. The evolution panels come with YOLO
-training.
+(``plot_label_distribution``, matplotlib; plot_labels :285), and the
+detector trainer's results.txt curves (``plot_detector_results``,
+plot_results :413) and hyperparameter-evolution scatter
+(``plot_evolution_results``, plot_evolution :334); matplotlib is imported
+where a panel is drawn.
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Dict, Sequence
 
 
@@ -127,6 +130,91 @@ def plot_label_distribution(label_rows, path,
         ax.set_xlim(0, 1)
         ax.set_ylim(0, 1)
         ax.set_title(title)
+    fig.savefig(path, dpi=110, bbox_inches="tight")
+    plt.close(fig)
+    return path
+
+
+_RESULTS_RE = re.compile(
+    r"epoch (\d+)/\d+ box ([\d.eE+-]+) obj ([\d.eE+-]+) cls ([\d.eE+-]+)"
+    r".*?(?:\| P ([\d.eE+-]+) R ([\d.eE+-]+) mAP@0\.5 ([\d.eE+-]+))?$")
+
+
+def plot_detector_results(results_txt: str, path: str) -> str:
+    """Loss/metric curves from yolo_train's results.txt (plot_results,
+    yolov5/utils/plots.py:413 / yolov3's utils.plot_results)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    series: Dict[str, list] = {k: [] for k in
+                               ("epoch", "box", "obj", "cls", "P", "R",
+                                "mAP@0.5")}
+    with open(results_txt) as f:
+        for line in f:
+            m = _RESULTS_RE.match(line.strip())
+            if not m:
+                continue
+            vals = m.groups()
+            series["epoch"].append(int(vals[0]))
+            for k, v in zip(("box", "obj", "cls", "P", "R", "mAP@0.5"),
+                            vals[1:]):
+                series[k].append(float(v) if v is not None else None)
+    fig, axes = plt.subplots(1, 2, figsize=(11, 4))
+    for k in ("box", "obj", "cls"):
+        axes[0].plot(series["epoch"], series[k], label=k)
+    axes[0].set_title("train losses")
+    axes[0].set_xlabel("epoch")
+    axes[0].legend()
+    axes[0].grid(alpha=0.3)
+    for k in ("P", "R", "mAP@0.5"):
+        pts = [(e, v) for e, v in zip(series["epoch"], series[k])
+               if v is not None]
+        if pts:
+            axes[1].plot(*zip(*pts), marker="o", label=k)
+    axes[1].set_title("val metrics")
+    axes[1].set_xlabel("epoch")
+    axes[1].legend()
+    axes[1].grid(alpha=0.3)
+    fig.savefig(path, dpi=110, bbox_inches="tight")
+    plt.close(fig)
+    return path
+
+
+def plot_evolution_results(evolve_txt: str, path: str, keys=None,
+                           w_fit=(0.0, 0.0, 0.1, 0.9)) -> str:
+    """Fitness-vs-gene scatter panels from the numeric evolve.txt
+    (plot_evolution, yolov5/utils/plots.py:334: np.loadtxt, fitness from
+    the first 4 result columns, one panel per gene). `keys` names the
+    gene columns (evolve.txt column 7 onward, the genome order)."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    import numpy as np
+
+    from rtdm_tpu_torch.train.evolve import N_RESULT_COLS, fitness
+
+    x = np.loadtxt(evolve_txt, ndmin=2)
+    if x.size == 0:
+        raise ValueError(f"no evolve rows in {evolve_txt}")
+    fits = fitness(x, w_fit)
+    ng = x.shape[1] - N_RESULT_COLS
+    keys = list(keys) if keys else [f"gene{i}" for i in range(ng)]
+    if len(keys) != ng:
+        raise ValueError(f"{len(keys)} keys for {ng} gene columns")
+    cols = min(ng, 5)
+    rows = -(-ng // cols)
+    fig, axes = plt.subplots(rows, cols, figsize=(3.2 * cols, 2.8 * rows),
+                             squeeze=False)
+    for i, k in enumerate(keys):
+        ax = axes[i // cols][i % cols]
+        ax.scatter(x[:, N_RESULT_COLS + i], fits, c=range(len(x)),
+                   cmap="viridis", s=24)
+        ax.set_title(k, fontsize=9)
+        ax.grid(alpha=0.3)
+    for i in range(ng, rows * cols):
+        axes[i // cols][i % cols].axis("off")
+    fig.suptitle("fitness vs gene (color = file order)", fontsize=10)
     fig.savefig(path, dpi=110, bbox_inches="tight")
     plt.close(fig)
     return path

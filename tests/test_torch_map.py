@@ -1,8 +1,8 @@
 """The detection CLIs' host modules against the JAX package's.
 
 ``eval/map.py`` (matching, AP of both families, the confusion matrix, the
-evaluator), the eval side of ``data/odder.py`` (data specs, label files,
-letterbox samples square and in rect buckets, the batch loader),
+evaluator), ``data/odder.py`` (data specs, label files, letterbox samples
+square and in rect buckets, the training sample, the batch loader),
 ``data/camera.py`` (image dirs, a video file), ``utils/checks.py``,
 ``utils/paths.py`` and ``utils/plots.py``: numpy and PIL on both sides,
 so each is held bit for bit (tolerance 0) on inputs made from seeds. The
@@ -191,9 +191,12 @@ def test_batch_loader_matches_jax(example_set):
 
 
 def test_training_sample_is_not_ported(example_set):
-    from rtdm_tpu_torch.data.odder import DetectionDataset
-    with pytest.raises(NotImplementedError, match="item 5"):
-        DetectionDataset(example_set, train=True)
+    """The training sample is ported: on the example set it equals the JAX
+    package's draw for draw (mosaic, the warp, HSV, the flip)."""
+    got, want = _datasets(example_set, train=True, seed=4)
+    for i in range(len(got.image_paths)):
+        _assert_same(got.load(i, np.random.default_rng(i)),
+                     want.load(i, np.random.default_rng(i)))
 
 
 def test_rect_shapes_match_jax():

@@ -46,8 +46,19 @@ card against the reference without JAX there; ``tests/test_torch_engine.py``,
 regenerate them in memory and check that they are current
 (``tests/test_torch_trainer.py`` the train golden's start and case a).
 
+And ``tests/goldens/torch_port/yolo_train.npz``: the JAX detector train
+step as ``rtdm_tpu/cli/yolo_train.py::train`` builds it, YOLO_STEPS steps
+in each case of ``YOLO_CASES`` from the committed detector engines'
+dequantized weights on the 10 example frames (PNG, letterboxed to
+YOLO_SIZE by the JAX package; ``images``, ``labels``, ``num_labels``): per
+step the loss, its (box, obj, cls) components and the gradients' global
+norm, and the leaves ``yolo_leaves`` picks (``<case>/leaves``): the
+parameters that moved most, a few BatchNorm statistics and EMA leaves;
+``spec`` holds the settings as JSON.
+
 Regenerate: JAX_PLATFORMS=cpu python -m tests.torch_port_goldens
-[classifier|detector|cli|cascade|train] (all without an argument)
+[classifier|detector|cli|cascade|train|yolo_train] (all without an
+argument)
 """
 
 from __future__ import annotations
@@ -506,10 +517,282 @@ def make_train_golden(cases=tuple(TRAIN_CASES)) -> dict:
     return out
 
 
+# the detector train golden: each case (engine, precision, accumulate, EMA)
+# takes YOLO_STEPS steps of the JAX train step as yolo_train.train() builds
+# it, from the committed engine's dequantized weights, on the 10 example
+# frames (PNG, letterboxed to YOLO_SIZE, no augmentation); the optimizer's
+# schedules are those of a YOLO_TOTAL-step run of YOLO_STEPS_PER_EPOCH steps
+# an epoch; YOLO_FLAGS are the CLI flags of every case
+GOLDEN_YOLO = GOLDEN.with_name("yolo_train.npz")
+YOLO_SIZE = 416
+YOLO_STEPS = 3
+YOLO_TOTAL = 100
+YOLO_STEPS_PER_EPOCH = 10
+YOLO_SEED = 0
+YOLO_FLAGS = ["--lr0", "0.01", "--momentum", "0.937", "--weight-decay",
+              "0.0005", "--burn-in", "2", "--optimizer", "sgd"]
+YOLO_CASES = {"a": ("yolov5s-mini_int8", "fp32", 1, True),
+              "b": ("yolov4-tiny-mini_int8", "fp32", 2, False),
+              "c": ("yolov5s-mini_int8", "bf16", 1, True)}
+YOLO_SPEC = {"img_size": YOLO_SIZE, "steps": YOLO_STEPS,
+             "total_steps": YOLO_TOTAL,
+             "steps_per_epoch": YOLO_STEPS_PER_EPOCH, "seed": YOLO_SEED,
+             "flags": YOLO_FLAGS, "cases": YOLO_CASES}
+# what the golden keeps of each step: the largest-moving parameter leaves
+# of at most YOLO_LEAF_MAX elements, the BatchNorm statistics of a few
+# layers and a few EMA leaves
+YOLO_PARAM_LEAVES = 4
+YOLO_STAT_LEAVES = 4
+YOLO_LEAF_MAX = 20000
+
+
+def yolo_batch(work: str) -> dict:
+    """The example set as one eval batch at YOLO_SIZE (images, labels,
+    num_labels), by the JAX package."""
+    from rtdm_tpu.data.odder import DetectionDataset, load_data_spec
+
+    from rtdm_tpu_torch.data.example_set import write_example_set
+    spec = load_data_spec(write_example_set(work))
+    ds = DetectionDataset(spec["valid"], YOLO_SIZE, base_dir=spec["base"],
+                          num_classes=2)
+    samples = [ds.load(i) for i in range(len(ds))]
+    return {k: np.stack([s[k] for s in samples])
+            for k in ("image", "labels", "num_labels")}
+
+
+def jax_yolo_optimizer(args, is_v5: bool, steps_per_epoch: int,
+                       total: int, hyp_file=None):
+    """The optax chain ``rtdm_tpu/cli/yolo_train.py::train`` builds
+    (:363-450) for these CLI ``args``, with the run's steps per epoch and
+    total steps and its hyp file."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from rtdm_tpu.train.schedules import kernel_only_mask
+    hyp_file = hyp_file or {}
+    if not is_v5:
+        cosine = optax.cosine_decay_schedule(
+            args.lr0, max(total - args.burn_in, 1),
+            alpha=10.0 ** (args.lrf if args.lrf is not None else -4.0))
+        schedule = optax.join_schedules(
+            [optax.linear_schedule(0.0, args.lr0, max(args.burn_in, 1)),
+             cosine], [max(args.burn_in, 1)])
+        if args.optimizer == "sgd":
+            return optax.chain(
+                optax.clip_by_global_norm(10.0),
+                optax.add_decayed_weights(args.weight_decay,
+                                          mask=kernel_only_mask),
+                optax.sgd(schedule, momentum=args.momentum, nesterov=True))
+        return optax.chain(optax.clip_by_global_norm(10.0),
+                           optax.adamw(schedule,
+                                       weight_decay=args.weight_decay,
+                                       mask=kernel_only_mask))
+    nw = int(max(round(hyp_file.get("warmup_epochs", 3.0)
+                       * steps_per_epoch), 1000))
+    nw = max(min(nw, total // 2), 1)
+    v5_lrf = (10.0 ** args.lrf if args.lrf is not None
+              else float(hyp_file.get("lrf", 0.2)))
+    if args.linear_lr:
+        def base_sched(step):
+            x = jnp.clip(step / total, 0.0, 1.0)
+            return args.lr0 * ((1.0 - x) * (1.0 - v5_lrf) + v5_lrf)
+    else:
+        base_sched = optax.cosine_decay_schedule(args.lr0, total,
+                                                 alpha=v5_lrf)
+    warm_bias_lr = float(hyp_file.get("warmup_bias_lr", 0.1))
+    warm_mom = float(hyp_file.get("warmup_momentum", 0.8))
+
+    def _warm(step, y0, y1_fn):
+        w = jnp.clip(step / nw, 0.0, 1.0)
+        return (1.0 - w) * y0 + w * y1_fn(step)
+
+    def bias_lr(step):
+        return _warm(step, warm_bias_lr, base_sched)
+
+    def rest_lr(step):
+        return _warm(step, 0.0, base_sched)
+
+    def momentum_sched(step):
+        return _warm(step, warm_mom, lambda _: args.momentum)
+
+    def bias_mask(params):
+        def walk(tree):
+            return {k: (walk(v) if isinstance(v, dict) else k == "bias")
+                    for k, v in tree.items()}
+        return walk(params)
+
+    def rest_mask(params):
+        return jax.tree_util.tree_map(lambda m: not m, bias_mask(params))
+
+    if args.optimizer == "sgd":
+        sgd_inj = optax.inject_hyperparams(optax.sgd,
+                                           static_args=("nesterov",))
+        inner_bias = sgd_inj(learning_rate=bias_lr, momentum=momentum_sched,
+                             nesterov=True)
+        inner_rest = sgd_inj(learning_rate=rest_lr, momentum=momentum_sched,
+                             nesterov=True)
+    else:
+        inner_bias = optax.adam(bias_lr)
+        inner_rest = optax.adam(rest_lr)
+    return optax.chain(
+        optax.clip_by_global_norm(10.0),
+        optax.add_decayed_weights(args.weight_decay, mask=kernel_only_mask),
+        optax.masked(inner_bias, bias_mask),
+        optax.masked(inner_rest, rest_mask))
+
+
+def jax_yolo_case(case: str, batch: dict, work: str) -> dict:
+    """YOLO_STEPS steps of the JAX detector train step in one case, built
+    as ``rtdm_tpu/cli/yolo_train.py::train`` builds it (the loss, the
+    optimizer chain of the family, the microbatch scan, BN burn-in as the
+    family's default, the EMA): per step the loss, its components, the
+    gradients' global norm and the flat variables (and EMA)."""
+    import jax
+    import jax.numpy as jnp
+    import optax
+
+    from rtdm_tpu.cli.yolo_detect import load_weights_for_cfg
+    from rtdm_tpu.cli.yolo_train import parse_args
+    from rtdm_tpu.export.detector import model_heads
+    from rtdm_tpu.train.ema import ema_init, ema_update
+    from rtdm_tpu.train.yolo_loss import (YoloHyp, YoloHypV5,
+                                          scale_v5_gains, yolo_loss,
+                                          yolo_loss_v5)
+
+    from rtdm_tpu_torch.data.example_set import write_engine_as_cfg
+    from rtdm_tpu_torch.models.io import flatten_tree
+    engine, precision, accumulate, use_ema = YOLO_CASES[case]
+    cfg, weights = write_engine_as_cfg(ROOT / "artifacts" / "engines" /
+                                       engine, work)
+    args = parse_args(["--cfg", cfg, "--weights", weights, "--img-size",
+                       str(YOLO_SIZE), "--precision", precision]
+                      + YOLO_FLAGS)
+    is_v5 = cfg.endswith(".yaml")
+    model, variables = load_weights_for_cfg(cfg, weights, YOLO_SIZE,
+                                            num_classes=2 if is_v5 else None)
+    heads = model_heads(model, variables)
+    if is_v5:
+        hyp = scale_v5_gains(YoloHypV5(), nl=len(heads), nc=2,
+                             img_size=YOLO_SIZE)
+        loss_impl = yolo_loss_v5
+    else:
+        hyp = YoloHyp(giou=args.giou_gain, cls=args.cls_gain,
+                      obj=args.obj_gain, iou_t=args.iou_t, fl_gamma=1.5)
+        loss_impl = yolo_loss
+    tx = jax_yolo_optimizer(args, is_v5, YOLO_STEPS_PER_EPOCH, YOLO_TOTAL)
+    update_bn = is_v5          # darknet: BN burn-in of 200 steps
+    dtype = jnp.bfloat16 if precision == "bf16" else jnp.float32
+
+    def loss_fn(params, batch_stats, images, labels, nlab, rng):
+        x = images.astype(dtype) / 255.0
+        raw, mutated = model.apply(
+            {"params": params, "batch_stats": batch_stats}, x,
+            train=True, mutable=["batch_stats"], rngs={"dropout": rng})
+        loss, comps = loss_impl(raw, heads, labels, nlab, YOLO_SIZE, hyp)
+        return loss, (mutated["batch_stats"], comps)
+
+    @jax.jit
+    def step(params, batch_stats, opt_state, ema, images, labels, nlab,
+             rng, step_i):
+        mb_i = images.reshape((accumulate, -1) + images.shape[1:])
+        mb_l = labels.reshape((accumulate, -1) + labels.shape[1:])
+        mb_n = nlab.reshape((accumulate, -1))
+
+        def body(carry, mb):
+            stats, gsum, lsum, comp_sum, k = carry
+            im, lb, nl = mb
+            (loss, (stats, comps)), grads = jax.value_and_grad(
+                loss_fn, has_aux=True)(params, stats, im, lb, nl,
+                                       jax.random.fold_in(rng, k))
+            gsum = jax.tree_util.tree_map(jnp.add, gsum, grads)
+            comp_vec = jnp.stack([comps["box"], comps["obj"], comps["cls"]])
+            return (stats, gsum, lsum + loss, comp_sum + comp_vec,
+                    k + 1), None
+
+        zeros = jax.tree_util.tree_map(jnp.zeros_like, params)
+        (new_stats, grads, loss, comps, _), _ = jax.lax.scan(
+            body, (batch_stats, zeros, jnp.zeros(()), jnp.zeros((3,)),
+                   jnp.zeros((), jnp.int32)), (mb_i, mb_l, mb_n))
+        grads = jax.tree_util.tree_map(lambda g: g / accumulate, grads)
+        grad_norm = optax.global_norm(grads)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        params = optax.apply_updates(params, updates)
+        new_stats = new_stats if update_bn else batch_stats
+        if use_ema:
+            ema = ema_update(ema, {"params": params,
+                                   "batch_stats": new_stats}, step_i)
+        return (params, new_stats, opt_state, ema, loss / accumulate,
+                comps / accumulate, grad_norm)
+
+    params = variables["params"]
+    batch_stats = variables.get("batch_stats", {})
+    opt_state = tx.init(params)
+    ema = ema_init({"params": params, "batch_stats": batch_stats}) \
+        if use_ema else {}
+    rng = jax.random.key(YOLO_SEED)
+    images = jnp.asarray(batch["image"])
+    labels = jnp.asarray(batch["labels"])
+    nlab = jnp.asarray(batch["num_labels"])
+    out = {"init": flatten_tree(jax.device_get(
+        {"params": params, "batch_stats": batch_stats})),
+        "loss": [], "comps": [], "grad_norm": [], "vars": [], "ema": []}
+    for it in range(YOLO_STEPS):
+        params, batch_stats, opt_state, ema, loss, comps, norm = step(
+            params, batch_stats, opt_state, ema, images, labels, nlab,
+            jax.random.fold_in(rng, it), jnp.asarray(it, jnp.int32))
+        out["loss"].append(float(loss))
+        out["comps"].append(np.asarray(comps, np.float32))
+        out["grad_norm"].append(float(norm))
+        out["vars"].append(flatten_tree(jax.device_get(
+            {"params": params, "batch_stats": batch_stats})))
+        if use_ema:
+            out["ema"].append(flatten_tree(jax.device_get(ema)))
+    return out
+
+
+def yolo_leaves(res: dict) -> dict:
+    """The leaves a case keeps: the YOLO_PARAM_LEAVES params of at most
+    YOLO_LEAF_MAX elements that moved most (max |final - init|), every
+    4th-ranked BatchNorm statistic up to YOLO_STAT_LEAVES, and for the EMA
+    the first two of those params and the first statistic."""
+    init, final = res["init"], res["vars"][-1]
+    params = sorted((k for k in final if k.startswith("params/")
+                     and final[k].size <= YOLO_LEAF_MAX),
+                    key=lambda k: -float(np.abs(final[k] - init[k]).max()))
+    stats = sorted(k for k in final if k.startswith("batch_stats/"))
+    stats = stats[::max(len(stats) // YOLO_STAT_LEAVES, 1)][
+        :YOLO_STAT_LEAVES]
+    chosen = {"params": params[:YOLO_PARAM_LEAVES], "stats": stats}
+    chosen["ema"] = (chosen["params"][:2] + stats[:1]) if res["ema"] else []
+    return chosen
+
+
+def make_yolo_train_golden(cases=tuple(YOLO_CASES)) -> dict:
+    with tempfile.TemporaryDirectory() as work:
+        batch = yolo_batch(os.path.join(work, "examples"))
+        out = {"spec": np.array(json.dumps(YOLO_SPEC)),
+               "images": batch["image"], "labels": batch["labels"],
+               "num_labels": batch["num_labels"]}
+        for case in cases:
+            res = jax_yolo_case(case, batch, os.path.join(work, case))
+            chosen = yolo_leaves(res)
+            out[f"{case}/leaves"] = np.array(json.dumps(chosen))
+            out[f"{case}/loss"] = np.array(res["loss"], np.float32)
+            out[f"{case}/comps"] = np.stack(res["comps"])
+            out[f"{case}/grad_norm"] = np.array(res["grad_norm"], np.float32)
+            for k in chosen["params"] + chosen["stats"]:
+                out[f"{case}/vars/{k}"] = np.stack([v[k]
+                                                    for v in res["vars"]])
+            for k in chosen["ema"]:
+                out[f"{case}/ema/{k}"] = np.stack([v[k] for v in res["ema"]])
+    return out
+
+
 def main() -> None:
     import sys
     which = sys.argv[1:] or ["classifier", "detector", "cli", "cascade",
-                             "train"]
+                             "train", "yolo_train"]
     os.environ["RTDM_XLA_CACHE"] = "0"   # no persistent compile cache
     GOLDEN.parent.mkdir(parents=True, exist_ok=True)
     if "classifier" in which:
@@ -528,6 +811,9 @@ def main() -> None:
     if "train" in which:
         np.savez_compressed(GOLDEN_TRAIN, **make_train_golden())
         print(f"wrote {GOLDEN_TRAIN}")
+    if "yolo_train" in which:
+        np.savez_compressed(GOLDEN_YOLO, **make_yolo_train_golden())
+        print(f"wrote {GOLDEN_YOLO}")
 
 
 if __name__ == "__main__":

@@ -83,8 +83,9 @@ non-zero exit, and the result line is printed only at the end:
   8. streaming, cascade and serving, from torch's TF32 defaults (cuDNN
      TF32 on): rtdm-serve on 127.0.0.1 with a Squeeze_ErNET fp32 engine
      and the yolov4-tiny-mini int8 detector, both endpoints driven at once
-     by run_load (SERVE_CLIENTS x SERVE_REQUESTS, PNG bodies of the
-     examples), every classify reply held to the lone direct fp32 call
+     by run_load (SERVE_CLIENTS x SERVE_REQUESTS, the example JPEGs as
+     bodies, decoded natively), every classify reply held to the lone
+     direct fp32 call
      (SERVE_PROB_TOL) and every detect reply equal to the direct Detector
      call, a control that runs the fp32 model under tf32(True) and must
      miss the fp32 logit gate, /stats, and run_direct's decode, handler and
@@ -139,7 +140,24 @@ non-zero exit, and the result line is printed only at the end:
      fp32 and bf16 at batch 16 and 64 (accumulate 4), the loader's images/s
      with mosaic, a profiler split of one bf16 step and the eval pass's
      ms/image;
- 11. one JSON line of kernels; then the last line, the result.
+ 11. native host IO (rtdm_tpu_torch/data/native_io.py,
+     csrc/rtdm_io.cpp): (a) with phase 2, the host library built by g++
+     beside the nvcc build (the command, the libjpeg it linked and that
+     library's version), which must load: the PIL fallback fails the run;
+     (b) after phase 10, on the 10 example JPEGs, the square and rect
+     letterbox decodes, decode_batch and DetectionDataset.load_scaled at
+     416 and 208, held to tests/goldens/torch_port/native_io.npz (sha256
+     digests, shapes, gains, pads, original sizes: bit-equal), and the
+     served classify frames at 140 through rtdm-serve's classify service
+     on the bf16 Squeeze_ErNET engine: every class equal to the JAX
+     server's (the probability margins printed; 4 bf16 ACFF launches a
+     batch, counted from 0); then host rates, native against PIL in this
+     run: the mosaic loader's images/s at 416 on 8 threads on phase 10's
+     synthetic JPEGs, serve_loadtest's decode_ms for classify and detect,
+     load_detector_calib_images' images/s; phase 10's loader and phase
+     8's rtdm-serve requests/s beside their figures with PIL from before
+     the native decode was wired in (PERF.md);
+ 12. one JSON line of kernels; then the last line, the result.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
 code 2 and no result without CUDA, or when run outside a checkout.
@@ -150,12 +168,14 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import dataclasses
+import hashlib
 import json
 import re
 import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -1453,20 +1473,6 @@ def phase_detect_cli(card, work):
     return records, launches
 
 
-def _png_bodies(paths):
-    """The images re-encoded as PNG bytes (the port decodes every body
-    with PIL; PNG keeps the JPEG's decoded pixels)."""
-    import io
-    from PIL import Image
-    out = []
-    for p in paths:
-        buf = io.BytesIO()
-        with Image.open(p) as im:
-            im.convert("RGB").save(buf, format="PNG")
-        out.append(buf.getvalue())
-    return out
-
-
 def phase_serve(card, work, launches):
     """Phase 8a: rtdm-serve with an fp32 classifier and an int8 detector
     side by side, both driven at once; each reply held to the lone direct
@@ -1481,7 +1487,7 @@ def phase_serve(card, work, launches):
     from rtdm_tpu_torch.export.engine import Engine
     from rtdm_tpu_torch.models.ernet import CLASS_NAMES
     examples = sorted((ROOT / "docs" / "examples").glob("*.jpg"))
-    bodies = _png_bodies(examples)
+    bodies = [p.read_bytes() for p in examples]   # the native decode
     loaded = Engine.load(str(ENGINES / "squeeze-ernet_bf16"))
     fp32_dir = str(work / "squeeze-ernet_fp32")
     Engine(dataclasses.replace(loaded.spec, quant="fp32"),
@@ -2697,6 +2703,222 @@ def phase_yolo_training(card, work):
     return records, launches
 
 
+# --- phase 11: native host IO ---------------------------------------------
+
+GOLDEN_NATIVE = GOLDEN.with_name("native_io.npz")
+# tests/torch_port_goldens.py: the rect bucket (h, w) at gain cap 1.0, the
+# load_scaled sizes, the served classify frame's size
+NATIVE_RECT = (320, 416)
+NATIVE_SCALED = (416, 208)
+NATIVE_SERVE_SIZE = 140
+# the same rates with PIL, before the native decode was wired in, on
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md): the loader with mosaic on PIL
+# tiles, rtdm-serve under load on PIL-decoded bodies
+PIL_LOADER_IMAGES_PER_S = 101.9
+PIL_SERVE_RPS = {"classify": 43.8, "detect": 36.1}
+
+
+@contextlib.contextmanager
+def _pil_only():
+    """Every JPEG path as on a machine without the native library."""
+    from rtdm_tpu_torch.data import native_io
+    saved = native_io._load
+    native_io._load = lambda: None
+    try:
+        yield
+    finally:
+        native_io._load = saved
+
+
+def _digest(a) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def phase_native_build():
+    """Phase 11a: build the host library (run beside the nvcc build); fail
+    unless it loads."""
+    from rtdm_tpu_torch.data import native_io
+    from rtdm_tpu_torch.ops import kernels
+    t0 = time.perf_counter()
+    if not native_io.available():
+        raise AssertionError("native IO: the host library did not build or "
+                             "load (see the warning above); the PIL "
+                             "fallback is not accepted on the card")
+    lib = kernels.host_library_path("rtdm_io")
+    command, libjpeg = lib.with_suffix(".log").read_text().splitlines()[:2]
+    record = {"seconds": time.perf_counter() - t0,
+              "library": str(lib.relative_to(ROOT)),
+              "command": command.split(": ", 1)[1],
+              "libjpeg": libjpeg.split(": ", 1)[1]}
+    return record
+
+
+def _native_golden_checks(golden, work):
+    """The port's native outputs against the golden's: (label, mismatches)
+    for each call."""
+    from rtdm_tpu_torch.data import native_io
+    from rtdm_tpu_torch.data.example_set import write_example_set
+    from rtdm_tpu_torch.data.odder import DetectionDataset, load_data_spec
+    examples = [ROOT / "docs" / "examples" / str(n) for n in golden["names"]]
+    bodies = [p.read_bytes() for p in examples]
+    batch = native_io.decode_batch([str(p) for p in examples], 416)
+    results = {
+        "square": [native_io.decode_jpeg_letterbox(b, 416) for b in bodies],
+        "rect": [native_io.decode_jpeg_letterbox_rect(b, *NATIVE_RECT,
+                                                      gain_cap=1.0)
+                 for b in bodies],
+        "batch": [(batch[0][i], batch[1][i], tuple(batch[2][i]),
+                   tuple(batch[3][i])) for i in range(len(bodies))]}
+    out = {}
+    for key, res in results.items():
+        bad = sum(
+            _digest(r[0]) != golden[f"{key}/digest"][i]
+            or tuple(r[0].shape) != tuple(golden[f"{key}/shape"][i])
+            or np.float32(r[1]) != golden[f"{key}/gain"][i]
+            or tuple(np.float32(r[2])) != tuple(golden[f"{key}/pads"][i])
+            or tuple(r[3]) != tuple(golden[f"{key}/orig_hw"][i])
+            for i, r in enumerate(res))
+        out[key] = bad
+    spec = load_data_spec(write_example_set(work / "native_set", jpeg=True))
+    ds = DetectionDataset(spec["valid"], 416, base_dir=str(spec["base"]))
+    for size in NATIVE_SCALED:
+        tiles = [ds.load_scaled(i, size) for i in range(len(ds))]
+        out[f"scaled_{size}"] = sum(
+            _digest(t) != golden[f"scaled_{size}/digest"][i]
+            or tuple(t.shape) != tuple(golden[f"scaled_{size}/shape"][i])
+            for i, t in enumerate(tiles))
+    return out, bodies
+
+
+def phase_native_served(card, launches, golden, bodies):
+    """Phase 11b: the served classify frames and classes against the JAX
+    server's, through the classify service on the bf16 engine."""
+    import threading
+    from rtdm_tpu_torch.cli.serve import _ClassifyService, classify_frame
+    from rtdm_tpu_torch.models.ernet import CLASS_NAMES
+    frames = np.stack([classify_frame(b, NATIVE_SERVE_SIZE) for b in bodies])
+    if not np.array_equal(frames, golden["serve_frames"]):
+        raise AssertionError("native IO: the served classify frames differ "
+                             "from the JAX server's")
+    svc = _ClassifyService(str(ENGINES / "squeeze-ernet_bf16"), 20.0, 2)
+    replies = [None] * len(bodies)
+
+    def call(i):
+        replies[i] = svc(bodies[i])
+    try:
+        _count_from_zero()
+        threads = [threading.Thread(target=call, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        batches = svc.batcher.stats().as_dict()["batches"]
+        path = (f"rtdm-serve classify bf16, native JPEG frames ({batches} "
+                f"batches)")
+        _read_launches(path, launches, _only("bf16", 4 * batches))
+    finally:
+        svc.batcher.close()
+    if any(r is None for r in replies):
+        raise AssertionError("native IO: a classify request did not finish")
+    probs = np.array([[r["probs"][c] for c in CLASS_NAMES] for r in replies],
+                     np.float32)
+    classes = probs.argmax(1)
+    top2 = np.sort(probs, 1)[:, -2:]
+    margins = (top2[:, 1] - top2[:, 0]).tolist()
+    for n, c, g, m in zip(golden["names"], classes, golden["serve_class"],
+                          margins):
+        say(f"  served {n}: class {c} (JAX {g}), top-2 margin {m:.4f}")
+    dprob = float(np.abs(probs - golden["serve_probs"]).max())
+    equal = int((classes == golden["serve_class"]).sum())
+    say(f"native IO served classes: {equal}/{len(classes)} equal to the JAX "
+        f"server's, max |dprob| {dprob:.3e}, {batches} batches [{card}]")
+    if not np.array_equal(classes, golden["serve_class"]):
+        raise AssertionError(f"native IO: served classes {classes.tolist()}"
+                             f" != JAX's {golden['serve_class'].tolist()}")
+    return {"classes": classes.tolist(), "margins": margins,
+            "max_dprob": dprob, "batches": batches}
+
+
+def _loader_rate(data):
+    """The detector train loader with mosaic at 416 (phase 10's settings):
+    images/s over one epoch of the set on 8 threads."""
+    from rtdm_tpu_torch.data.odder import (DetectionBatchLoader,
+                                           DetectionDataset, load_data_spec)
+    spec = load_data_spec(data)
+    ds = DetectionDataset(spec["train"], 416, base_dir=spec["base"],
+                          train=True, seed=SEED, num_classes=2)
+    loader = DetectionBatchLoader(ds, 16, shuffle=True, drop_last=True,
+                                  num_workers=8, seed=SEED)
+    t0 = time.perf_counter()
+    n = sum(16 for _ in loader)
+    return n / (time.perf_counter() - t0)
+
+
+def phase_native_rates(card, work):
+    """Phase 11c: host rates with the native decode and, in the same run,
+    with PIL: the mosaic loader, serve_loadtest's decode_ms, the detector
+    calibration load."""
+    from rtdm_tpu_torch.cli.build_engine import load_detector_calib_images
+    from rtdm_tpu_torch.cli.serve_loadtest import decode_breakdown
+    data = str(work / "synth" / "data" / "synth.data")
+    calib_dir = str(work / "synth" / "data" / "images" / "train")
+    n_calib = len(list(Path(calib_dir).glob("*.jpg")))
+    out = {}
+    for route in ("native", "pil", "native again"):
+        ctx = _pil_only() if route == "pil" else contextlib.nullcontext()
+        with ctx:
+            rec = {"loader_images_per_s": _loader_rate(data)}
+            for service, size in (("classify", NATIVE_SERVE_SIZE),
+                                  ("detect", 416)):
+                rec[f"decode_ms_{service}"] = decode_breakdown(
+                    size, service, reps=64)[2]
+            t0 = time.perf_counter()
+            calib = load_detector_calib_images(calib_dir, 416)
+            rec["calib_images_per_s"] = n_calib / (time.perf_counter() - t0)
+        if calib.shape != (n_calib, 416, 416, 3):
+            raise AssertionError(f"calibration batch {calib.shape}")
+        out[route] = rec
+        say(f"host IO {route}: mosaic loader {rec['loader_images_per_s']:.1f}"
+            f" images/s (8 threads, 416, {SYNTH_SPLITS[0]} synthetic JPEGs);"
+            f" decode_ms classify {rec['decode_ms_classify']:.3f}, detect "
+            f"{rec['decode_ms_detect']:.3f} (320x240 JPEG bodies); detector "
+            f"calibration {rec['calib_images_per_s']:.1f} images/s "
+            f"({n_calib} JPEGs) [{card}]")
+    return out
+
+
+def phase_native_io(card, work, build, serving, yolo_training):
+    """Phase 11b-c. Returns the records and, by path, the ACFF launches."""
+    t0 = time.perf_counter()
+    launches = {}
+    with np.load(GOLDEN_NATIVE) as g:
+        golden = dict(g)
+    mismatches, bodies = _native_golden_checks(golden, work)
+    say("native IO vs the golden (frames differing, of 10): " +
+        json.dumps(mismatches))
+    if any(mismatches.values()):
+        raise AssertionError(f"native IO: outputs differ from the JAX "
+                             f"golden: {mismatches}")
+    records = {"build": build, "golden_mismatches": mismatches,
+               "served": phase_native_served(card, launches, golden, bodies),
+               "rates": phase_native_rates(card, work)}
+    loads = serving["serve"]["load"]
+    records["before_after"] = {
+        "loader_images_per_s": {
+            "before (PIL)": PIL_LOADER_IMAGES_PER_S,
+            "phase 10 (native)": yolo_training["timing"][
+                "loader_images_per_s"]},
+        "rtdm_serve_rps": {e: {"before (PIL)": PIL_SERVE_RPS[e],
+                               "phase 8 (native)": loads[e]["rps"]}
+                           for e in PIL_SERVE_RPS}}
+    say("native IO, before (PIL) and after (this run, native): "
+        + json.dumps(records["before_after"]) + f" [{card}]")
+    records["seconds"] = time.perf_counter() - t0
+    say(f"phase 11: {records['seconds']:.1f} s")
+    return records, launches
+
+
 def main() -> int:
     if not (ROOT / "rtdm_tpu_torch").is_dir() or not GOLDEN.exists():
         print("chip_smoke.py runs from the root of a checkout of the "
@@ -2718,11 +2940,17 @@ def main() -> int:
         f"{torch.version.cuda}")
     say(f"card: {card}")
 
-    # 2. build
+    # 2. build, and 11a: the host library beside it
     from rtdm_tpu_torch.ops import kernels
     t0 = time.perf_counter()
-    log = kernels.build("acff")
-    say(f"build: acff in {time.perf_counter() - t0:.1f} s")
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(phase_native_build)
+        log = kernels.build("acff")
+        say(f"build: acff in {time.perf_counter() - t0:.1f} s")
+        native_build = native.result()
+    say(f"build: native IO in {native_build['seconds']:.1f} s: "
+        f"{native_build['command']}")
+    say(f"build: native IO linked {native_build['libjpeg']}")
     for line in log.splitlines():
         if "ptxas" in line:
             say(f"  acff: {line.strip()}")
@@ -2779,7 +3007,11 @@ def main() -> int:
     # 10. detector training
     yolo_training, yolo_launches = phase_yolo_training(card, work)
 
-    # 11. kernels line: one entry a kernel (the QDQ mode of the bf16 kernel
+    # 11. native host IO
+    native_records, native_launches = phase_native_io(
+        card, work, native_build, serving, yolo_training)
+
+    # 12. kernels line: one entry a kernel (the QDQ mode of the bf16 kernel
     # its own), summed over the ACFF blocks of one forward of its main path
     # (the Squeeze_ErNET engine of its precision), launches counted in that
     # forward; the bf16 kernel's entry also lists the veto's launches in
@@ -2819,7 +3051,9 @@ def main() -> int:
                 **{p: n[quant] for p, n in train_launches.items()
                    if n[quant]},
                 # the detector trainer launches no hand kernel: 0 on each
-                **{p: n[quant] for p, n in yolo_launches.items()}},
+                **{p: n[quant] for p, n in yolo_launches.items()},
+                **{p: n[quant] for p, n in native_launches.items()
+                   if n[quant]}},
             "per_shape": [r for r in records if r["quant"] == quant],
         })
         if quant in real:
@@ -2872,6 +3106,8 @@ def main() -> int:
     say("ACFF launches on phase 9's paths: " + json.dumps(train_launches))
     say("detector training: " + json.dumps(yolo_training, default=float))
     say("ACFF launches on phase 10's paths: " + json.dumps(yolo_launches))
+    say("native host IO: " + json.dumps(native_records, default=float))
+    say("ACFF launches on phase 11's paths: " + json.dumps(native_launches))
     say(f"fault 2: {len(fault2_rows)} shapes x modes held to the plain "
         f"version")
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -47,9 +47,12 @@ def load_calib_images(calib_dir: str, image_size: int, limit: int = 256):
 def load_detector_calib_images(calib_dir: str, img_size: int,
                                limit: int = 256):
     """Up to ``limit`` images of ``calib_dir`` (sorted by path),
-    letterboxed to ``img_size`` on the PIL path, as uint8 (N, s, s, 3)."""
+    letterboxed to ``img_size``, as uint8 (N, s, s, 3). A directory of
+    JPEGs goes through the native batch decode (one call for the set); a
+    slot it fails, and every image of any other directory, takes PIL."""
     import numpy as np
     from rtdm_tpu_torch.cli.aider_predict import load_image_rgb
+    from rtdm_tpu_torch.data import native_io
     from rtdm_tpu_torch.data.odder import letterbox_image
 
     paths = sorted(
@@ -57,8 +60,16 @@ def load_detector_calib_images(calib_dir: str, img_size: int,
         for p in glob.glob(os.path.join(calib_dir, pat)))[:limit]
     if not paths:
         raise FileNotFoundError(f"no calibration images in {calib_dir}")
-    return np.stack([letterbox_image(load_image_rgb(p), img_size)[0]
-                     for p in paths])
+    res = (native_io.decode_batch(paths, img_size)
+           if all(p.lower().endswith((".jpg", ".jpeg")) for p in paths)
+           else None)
+    if res is None:
+        return np.stack([letterbox_image(load_image_rgb(p), img_size)[0]
+                         for p in paths])
+    batch, _, _, _, ok = res
+    for i in np.flatnonzero(~ok):
+        batch[i] = letterbox_image(load_image_rgb(paths[i]), img_size)[0]
+    return batch
 
 
 def build_detector_engine(args):

@@ -12,10 +12,10 @@ Endpoints (body = raw JPEG/PNG bytes):
   GET  /healthz      -> {"ok": true, ...}
   GET  /stats        -> per-batcher request/batch/latency stats
 
-Images are decoded with PIL. The JAX server decodes JPEG bodies with the
-native libjpeg decoder where it is built (``data/native_io.py``); that
-decoder is not ported yet, and for any other body the JAX server takes
-the same PIL path as this one.
+A JPEG body is decoded by the native libjpeg decoder
+(``data/native_io.py``: DCT-prescaled decode, the cv2-matching resize and
+the crop or letterbox), as in the JAX server; any other body, or a machine
+where the library is not built, takes PIL.
 
 Usage:
   python -m rtdm_tpu_torch.cli.serve --engine engines/se-bf16 \
@@ -38,19 +38,65 @@ from rtdm_tpu_torch.models.ernet import CLASS_NAMES
 
 
 def _decode_image(body: bytes) -> np.ndarray:
-    """Image bytes -> RGB HWC uint8."""
+    """Image bytes -> RGB HWC uint8 (the PIL path)."""
     from PIL import Image
     return np.asarray(Image.open(io.BytesIO(body)).convert("RGB"), np.uint8)
 
 
+def _peek_dims(body: bytes):
+    """(w, h) from the header alone (PIL's lazy open, no pixel decode);
+    None when PIL cannot read it."""
+    from PIL import Image
+    try:
+        with Image.open(io.BytesIO(body)) as im:
+            return im.size
+    except Exception:  # noqa: BLE001 — any unreadable body takes PIL's path
+        return None
+
+
+def _native_classify_frame(body: bytes, size: int):
+    """JPEG bytes -> the (size, size, 3) uint8 eval frame by the native
+    decoder, in ``aider_predict.preprocess``'s geometry: the shorter side
+    resized to int(1.14 * size), then the center crop. The aspect-exact
+    rect letterbox is a plain resize (at most 1 px of border, inside the
+    crop's margin of 9 px or more). None for a body the native path does
+    not take, which then goes through PIL."""
+    from rtdm_tpu_torch.data import native_io
+    if not native_io.available():
+        return None
+    wh = _peek_dims(body)
+    if wh is None:
+        return None
+    w, h = wh
+    target = int(size * 1.14)
+    if w <= h:
+        nw, nh = target, max(int(round(h * target / w)), target)
+    else:
+        nh, nw = target, max(int(round(w * target / h)), target)
+    res = native_io.decode_jpeg_letterbox_rect(body, nh, nw)
+    if res is None:
+        return None
+    left, top = (nw - size) // 2, (nh - size) // 2
+    return np.ascontiguousarray(res[0][top:top + size, left:left + size])
+
+
 def classify_frame(body: bytes, size: int) -> np.ndarray:
-    """Image bytes -> the classifier's (size, size, 3) uint8 eval frame."""
-    from rtdm_tpu_torch.cli.aider_predict import preprocess
-    return preprocess(_decode_image(body), size)[0]
+    """Image bytes -> the classifier's (size, size, 3) uint8 eval frame:
+    the native frame, else PIL and ``aider_predict.preprocess``."""
+    frame = _native_classify_frame(body, size)
+    if frame is None:
+        from rtdm_tpu_torch.cli.aider_predict import preprocess
+        frame = preprocess(_decode_image(body), size)[0]
+    return frame
 
 
 def detect_frame(body: bytes, size: int):
-    """Image bytes -> (letterboxed frame, gain, pads, original (h, w))."""
+    """Image bytes -> (letterboxed frame, gain, pads, original (h, w)): one
+    native decode and letterbox, else PIL and ``letterbox_image``."""
+    from rtdm_tpu_torch.data import native_io
+    res = native_io.decode_jpeg_letterbox(body, size)
+    if res is not None:
+        return res
     from rtdm_tpu_torch.data.odder import letterbox_image
     img = _decode_image(body)
     boxed, gain, pads = letterbox_image(img, size)

@@ -112,6 +112,31 @@ def run_load(url: str, endpoint: str = "/v1/classify", clients: int = 16,
     return out
 
 
+def decode_breakdown(size: int, service: str, seed: int = 0,
+                     reps: int = 16):
+    """The handler's host-side work alone: 8 seeded 320x240 JPEG bodies,
+    their frames (``cli/serve.py``'s ``classify_frame``, or
+    ``detect_frame``'s letterbox for ``service`` "detect") and the mean ms
+    of one decode and preprocess over ``reps`` after a warm call (the
+    native library's first load). Returns (bodies, frames, decode_ms)."""
+    from rtdm_tpu_torch.cli.serve import classify_frame, detect_frame
+    bodies = [_jpeg(np.random.default_rng(seed + i), h=240, w=320)
+              for i in range(8)]
+    if service == "classify":
+        def decode(body):
+            return classify_frame(body, size)
+    else:
+        def decode(body):
+            return detect_frame(body, size)[0]
+
+    decode(bodies[0])  # warm
+    t0 = time.perf_counter()
+    for k in range(reps):
+        decode(bodies[k % len(bodies)])
+    decode_ms = (time.perf_counter() - t0) / reps * 1e3
+    return bodies, [decode(b) for b in bodies], decode_ms
+
+
 def run_direct(engine_dir: str = "", detector_dir: str = "",
                clients: int = 16, requests_per_client: int = 32,
                seed: int = 0, device="cuda") -> Dict[str, float]:
@@ -128,33 +153,15 @@ def run_direct(engine_dir: str = "", detector_dir: str = "",
                          per-request host decode — the ceiling the HTTP
                          front end can never exceed
     """
-    from rtdm_tpu_torch.cli.serve import (_ClassifyService, _DetectService,
-                                          classify_frame, detect_frame)
+    from rtdm_tpu_torch.cli.serve import _ClassifyService, _DetectService
 
     if bool(engine_dir) == bool(detector_dir):
         raise ValueError("exactly one of engine_dir/detector_dir")
     svc = (_ClassifyService(engine_dir, 2.0, 2, device)
            if engine_dir else
            _DetectService(detector_dir, 2.0, 2, device=device))
-    size = svc.size
-    bodies = [_jpeg(np.random.default_rng(seed + i), h=240, w=320)
-              for i in range(8)]
-
-    # --- decode+preprocess breakdown (the handler's host-side work) ---
-    if engine_dir:
-        def decode(body):
-            return classify_frame(body, size)
-    else:
-        def decode(body):
-            return detect_frame(body, size)[0]
-
-    decode(bodies[0])  # warm
-    t0 = time.perf_counter()
-    reps = 16
-    for k in range(reps):
-        decode(bodies[k % len(bodies)])
-    decode_ms = (time.perf_counter() - t0) / reps * 1e3
-    frames = [decode(b) for b in bodies]
+    bodies, frames, decode_ms = decode_breakdown(
+        svc.size, "classify" if engine_dir else "detect", seed)
 
     def hammer(call, items) -> Dict[str, float]:
         lat: List[float] = []

@@ -4,8 +4,9 @@
 yolov4-tiny's own detections on them at conf 0.4 (``name conf x1 y1 x2 y2``
 in original-image pixels; ``docs/examples/README.md``). ``write_example_set``
 writes them as a set ``yolo_test`` reads: the frames decoded by PIL and
-saved as ``.png`` (a ``.jpg`` would take the JAX package's native libjpeg
-decode there and PIL here, other pixels), one YOLO label row a detection
+saved as ``.png``, the pixels the committed goldens were computed on (a
+``.jpg`` would take the native libjpeg decode, alike in both packages, and
+other pixels than PIL's), one YOLO label row a detection
 (``cls cx cy w h``, normalised, clipped to the frame), a ``valid.txt``
 list and a darknet ``.data`` with the names person and vehicle. These
 labels are no ground truth: a model scored on them reports how far it
@@ -23,10 +24,14 @@ EXAMPLES = Path(__file__).resolve().parents[2] / "docs" / "examples"
 NAMES = ("person", "vehicle")
 
 
-def write_example_set(out_dir, examples: Path = EXAMPLES) -> str:
+def write_example_set(out_dir, examples: Path = EXAMPLES,
+                      jpeg: bool = False) -> str:
     """Write the set under ``out_dir`` (``images/*.png``, ``labels/*.txt``,
     ``valid.txt``, ``data/examples.{data,names}``); returns the ``.data``
-    path."""
+    path. With ``jpeg`` the images are the example JPEGs themselves,
+    copied byte for byte (``images/*.jpg``), for the native decode."""
+    import shutil
+
     from PIL import Image
 
     out = Path(out_dir)
@@ -36,7 +41,11 @@ def write_example_set(out_dir, examples: Path = EXAMPLES) -> str:
     for jpg in sorted(Path(examples).glob("*.jpg")):
         with Image.open(jpg) as im:
             img = np.asarray(im.convert("RGB"), np.uint8)
-        Image.fromarray(img).save(out / "images" / f"{jpg.stem}.png")
+        image = f"images/{jpg.stem}{'.jpg' if jpeg else '.png'}"
+        if jpeg:
+            shutil.copyfile(jpg, out / image)
+        else:
+            Image.fromarray(img).save(out / image)
         h, w = img.shape[:2]
         rows = []
         for line in jpg.with_suffix(".txt").read_text().splitlines():
@@ -51,7 +60,7 @@ def write_example_set(out_dir, examples: Path = EXAMPLES) -> str:
                         f"{(y2 - y1) / h:.6f}")
         (out / "labels" / f"{jpg.stem}.txt").write_text(
             "".join(r + "\n" for r in rows))
-        listed.append(f"images/{jpg.stem}.png")
+        listed.append(image)
     (out / "valid.txt").write_text("".join(p + "\n" for p in listed))
     (out / "data" / "examples.names").write_text(
         "".join(n + "\n" for n in NAMES))

@@ -9,10 +9,11 @@ eval and training samples (mosaic, mosaic9, mixup, the affine warp, HSV,
 cutout and the flip from ``data/yolo_augment.py``, each draw from the
 sample's generator in the reference's order), ``image_weights`` and the
 threaded ``DetectionBatchLoader`` (its epoch order from
-``default_rng(seed + epoch)``, shuffled or drawn by image weight). Frames
-are decoded with PIL (the JAX package's native libjpeg decode,
-``data/native_io.py``, is not ported yet, so a ``.jpg`` may decode to
-other pixels there; a ``.png`` decodes alike).
+``default_rng(seed + epoch)``, shuffled or drawn by image weight). A
+``.jpg``/``.jpeg`` frame is decoded by ``data/native_io.py`` (libjpeg with
+DCT prescaling, the cv2-matching resize and the letterbox in one native
+call) where it is built and the image cache is off, as in the JAX package;
+other frames, cached ones and a failed native decode take PIL.
 """
 
 from __future__ import annotations
@@ -512,12 +513,34 @@ class DetectionDataset:
     def load_scaled(self, idx: int, size: int) -> np.ndarray:
         """The frame with its long side resized to ``size``, aspect kept,
         no padding (the mosaic tile, load_image semantics,
-        yolov3/utils/datasets.py:393-404), by PIL bilinear; cached with
+        yolov3/utils/datasets.py:393-404). With the cache off, a ``.jpg``
+        takes the native decode (at about the target resolution, then the
+        cv2-matching resize), cropped out of its letterboxed square; cached
+        and other frames take ``load_raw`` and PIL bilinear, cached with
         ``cache_images``."""
+        path = self.image_paths[idx]
         if self.cache_images:
             hit = self._scaled_cache.get((idx, int(size)))
             if hit is not None:
                 return hit
+        elif path.lower().endswith((".jpg", ".jpeg")):
+            from rtdm_tpu_torch.data.native_io import decode_jpeg_letterbox
+            try:
+                with open(path, "rb") as f:
+                    res = decode_jpeg_letterbox(f.read(), size)
+            except OSError as e:
+                logger.warning("native decode failed for %s: %s", path, e)
+                res = None
+            if res is not None:
+                sq, gain, (pad_w, pad_h), (h0, w0) = res
+                # the pads are whole pixels ((size - nw) // 2); the resized
+                # shape is rtdm_io.cpp's, in its fp32 arithmetic (float64
+                # could round a .5 boundary the other way)
+                g32 = np.float32(gain)
+                nh = max(int(np.float32(h0) * g32 + np.float32(0.5)), 1)
+                nw = max(int(np.float32(w0) * g32 + np.float32(0.5)), 1)
+                y0, x0 = int(pad_h), int(pad_w)
+                return np.ascontiguousarray(sq[y0:y0 + nh, x0:x0 + nw])
         img = self.load_raw(idx)
         h0, w0 = img.shape[:2]
         gain = size / max(h0, w0)
@@ -541,13 +564,26 @@ class DetectionDataset:
         # (r < 1 branch + scaleup=False), hence the extra min(cap, 1).
         # v5 eval (eval_scaleup=True) keeps the uncapped fit — see
         # __init__ for the yolov5/utils/datasets.py:645 citation.
+        native = (not self.cache_images   # a cached raw frame is cheaper
+                  and path.lower().endswith((".jpg", ".jpeg")))
         if self.rect:
             # rect bucket target (datasets.py:430: shape =
             # batch_shapes[batch[index]]). The gain cap
             # keeps the reference's geometry — without it a pad-inflated
             # bucket (v5's +0.5, stride rounding) would upscale instead
-            # of rendering border.
+            # of rendering border. The native path takes the cap from the
+            # header size the buckets were planned from.
             th, tw = self.rect_shapes[idx]
+            if native:
+                w_hdr, h_hdr = self.rect_wh[idx]
+                cap = self.img_size / max(h_hdr, w_hdr, 1.0)
+                if not self.train and not self.eval_scaleup:
+                    cap = min(cap, 1.0)
+                res = _native_decode(path, th, tw, cap)
+                if res is not None:
+                    out, gain, (pad_w, pad_h), (orig_h, orig_w) = res
+                    return self._pack_eval(out, idx, orig_h, orig_w, gain,
+                                           pad_w, pad_h)
             img = self.load_raw(idx)
             orig_h, orig_w = img.shape[:2]
             cap = self.img_size / max(orig_h, orig_w, 1)
@@ -557,6 +593,17 @@ class DetectionDataset:
                                                         gain_cap=cap)
             return self._pack_eval(out, idx, orig_h, orig_w, gain,
                                    pad_w, pad_h)
+        if native:
+            # v3 eval caps the gain at 1 (never upscale: the square fit is
+            # img_size / max(h, w), so the cap binds only on images smaller
+            # than img_size); train and v5 eval keep the uncapped fit
+            uncapped = self.train or self.eval_scaleup
+            res = _native_decode(path, self.img_size, self.img_size,
+                                 0.0 if uncapped else 1.0)
+            if res is not None:
+                out, gain, (pad_w, pad_h), (orig_h, orig_w) = res
+                return self._pack_eval(out, idx, orig_h, orig_w, gain,
+                                       pad_w, pad_h)
         img = self.load_raw(idx)
         orig_h, orig_w = img.shape[:2]
         out, gain, (pad_w, pad_h) = letterbox_image(
@@ -588,6 +635,19 @@ class DetectionDataset:
                 "orig_hw": np.array([orig_h, orig_w], np.int32),
                 "letterbox": np.array([gain, pad_w, pad_h], np.float32),
                 "index": np.int32(idx)}
+
+
+def _native_decode(path: str, out_h: int, out_w: int, gain_cap: float):
+    """``native_io.decode_jpeg_letterbox_rect`` of the file at ``path`` with
+    the gray border; None where native IO, the file or its decode fails."""
+    from rtdm_tpu_torch.data.native_io import decode_jpeg_letterbox_rect
+    try:
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return None
+    return decode_jpeg_letterbox_rect(data, out_h, out_w, PAD_COLOR,
+                                      gain_cap=gain_cap)
 
 
 class DetectionBatchLoader:

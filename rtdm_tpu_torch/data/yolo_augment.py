@@ -6,8 +6,9 @@ reference's order, so the same generator gives the same images and labels
 in both packages (yolov3/utils/datasets.py: load_mosaic :532-596,
 augment_hsv :525-529, random_affine :633+; yolov5's load_mosaic9, mixup
 and cutout). ``load_mosaic`` and ``load_mosaic9`` read their tiles through
-``dataset.load_scaled`` (PIL here, for every format; the JAX package
-decodes ``.jpg`` with its native libjpeg path). Defaults mirror
+``dataset.load_scaled`` (a ``.jpg`` through the native libjpeg decode
+of ``data/native_io.py``, as in the JAX package; other formats through
+PIL). Defaults mirror
 yolov3/train.py:38-44's hyp.
 """
 

@@ -6,8 +6,9 @@ square and in rect buckets, the training sample, the batch loader),
 ``data/camera.py`` (image dirs, a video file), ``utils/checks.py``,
 ``utils/paths.py`` and ``utils/plots.py``: numpy and PIL on both sides,
 so each is held bit for bit (tolerance 0) on inputs made from seeds. The
-example set stores its frames as ``.png``: the JAX package decodes a
-``.jpg`` through its native libjpeg path, the port through PIL.
+example set stores its frames as ``.png``, which both packages decode with
+PIL; their native ``.jpg`` paths are held in
+``tests/test_torch_native_odder.py``.
 """
 
 import os

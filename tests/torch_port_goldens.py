@@ -56,14 +56,29 @@ norm, and the leaves ``yolo_leaves`` picks (``<case>/leaves``): the
 parameters that moved most, a few BatchNorm statistics and EMA leaves;
 ``spec`` holds the settings as JSON.
 
+And ``tests/goldens/torch_port/native_io.npz``: the JAX package's native
+JPEG paths (``rtdm_tpu/data/native_io.py``) on the 10 example JPEGs
+(``make_native_golden``), each output as its shape and the sha256 of its
+bytes (``digest``), with the gain, the pads (w, h) and the original (h, w)
+where the call returns them: the square letterbox at ``NATIVE_SQUARE``
+(``square/``), the rect letterbox at the bucket ``NATIVE_RECT`` with gain
+cap 1.0 (``rect/``), ``DetectionDataset.load_scaled`` at each of
+``NATIVE_SCALED`` on the set of ``write_example_set(jpeg=True)``
+(``scaled_<s>/``), ``decode_batch`` at ``NATIVE_SQUARE`` (``batch/``),
+and rtdm-serve's classify frames at ``NATIVE_SERVE_SIZE`` in full
+(``serve_frames``) with the probabilities, class and top probability the
+JAX server's engine, ``artifacts/engines/squeeze-ernet_bf16``, gives them
+(``serve_probs``, ``serve_class``, ``serve_top``).
+
 Regenerate: JAX_PLATFORMS=cpu python -m tests.torch_port_goldens
-[classifier|detector|cli|cascade|train|yolo_train] (all without an
-argument)
+[classifier|detector|cli|cascade|train|yolo_train|native_io] (all without
+an argument)
 """
 
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import tempfile
@@ -768,6 +783,67 @@ def yolo_leaves(res: dict) -> dict:
     return chosen
 
 
+GOLDEN_NATIVE = GOLDEN.with_name("native_io.npz")
+NATIVE_SQUARE = 416
+NATIVE_RECT = (320, 416)          # one rect bucket (h, w), gain cap 1.0
+NATIVE_SCALED = (416, 208)
+NATIVE_SERVE_SIZE = 140
+NATIVE_SERVE_ENGINE = ROOT / "artifacts" / "engines" / "squeeze-ernet_bf16"
+
+
+def digest(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def native_records(prefix: str, results) -> dict:
+    """``results``: per image (frame, gain, (pad_w, pad_h), (orig_h,
+    orig_w)) -> the golden's arrays under ``prefix/``."""
+    return {f"{prefix}/digest": np.array([digest(r[0]) for r in results]),
+            f"{prefix}/shape": np.array([r[0].shape for r in results]),
+            f"{prefix}/gain": np.array([r[1] for r in results], np.float32),
+            f"{prefix}/pads": np.array([r[2] for r in results], np.float32),
+            f"{prefix}/orig_hw": np.array([r[3] for r in results])}
+
+
+def make_native_golden() -> dict:
+    from rtdm_tpu.cli.serve import _native_classify_frame
+    from rtdm_tpu.data import native_io
+    from rtdm_tpu.data.odder import DetectionDataset, load_data_spec
+    from rtdm_tpu.export.engine import Engine
+
+    from rtdm_tpu_torch.data.example_set import write_example_set
+    assert native_io.available(), "the JAX native library does not load"
+    bodies = [p.read_bytes() for p in EXAMPLES]
+    out = {"names": np.array([p.name for p in EXAMPLES])}
+    out.update(native_records("square", [
+        native_io.decode_jpeg_letterbox(b, NATIVE_SQUARE) for b in bodies]))
+    out.update(native_records("rect", [
+        native_io.decode_jpeg_letterbox_rect(b, *NATIVE_RECT, gain_cap=1.0)
+        for b in bodies]))
+    batch, gains, pads, orig, ok = native_io.decode_batch(
+        [str(p) for p in EXAMPLES], NATIVE_SQUARE)
+    assert ok.all()
+    out.update(native_records("batch", [
+        (batch[i], gains[i], tuple(pads[i]), tuple(orig[i]))
+        for i in range(len(EXAMPLES))]))
+    with tempfile.TemporaryDirectory() as work:
+        spec = load_data_spec(write_example_set(work, jpeg=True))
+        ds = DetectionDataset(spec["valid"], NATIVE_SQUARE,
+                              base_dir=str(spec["base"]))
+        for size in NATIVE_SCALED:
+            tiles = [ds.load_scaled(i, size) for i in range(len(ds))]
+            out[f"scaled_{size}/digest"] = np.array([digest(t)
+                                                     for t in tiles])
+            out[f"scaled_{size}/shape"] = np.array([t.shape for t in tiles])
+    frames = np.stack([_native_classify_frame(b, NATIVE_SERVE_SIZE)
+                       for b in bodies])
+    probs = np.asarray(Engine.load(str(NATIVE_SERVE_ENGINE))(frames),
+                       np.float32)
+    out.update(serve_frames=frames, serve_probs=probs,
+               serve_class=probs.argmax(1), serve_top=probs.max(1))
+    return out
+
+
 def make_yolo_train_golden(cases=tuple(YOLO_CASES)) -> dict:
     with tempfile.TemporaryDirectory() as work:
         batch = yolo_batch(os.path.join(work, "examples"))
@@ -792,7 +868,7 @@ def make_yolo_train_golden(cases=tuple(YOLO_CASES)) -> dict:
 def main() -> None:
     import sys
     which = sys.argv[1:] or ["classifier", "detector", "cli", "cascade",
-                             "train", "yolo_train"]
+                             "train", "yolo_train", "native_io"]
     os.environ["RTDM_XLA_CACHE"] = "0"   # no persistent compile cache
     GOLDEN.parent.mkdir(parents=True, exist_ok=True)
     if "classifier" in which:
@@ -814,6 +890,9 @@ def main() -> None:
     if "yolo_train" in which:
         np.savez_compressed(GOLDEN_YOLO, **make_yolo_train_golden())
         print(f"wrote {GOLDEN_YOLO}")
+    if "native_io" in which:
+        np.savez_compressed(GOLDEN_NATIVE, **make_native_golden())
+        print(f"wrote {GOLDEN_NATIVE}")
 
 
 if __name__ == "__main__":

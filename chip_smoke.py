@@ -157,7 +157,35 @@ non-zero exit, and the result line is printed only at the end:
      load_detector_calib_images' images/s; phase 10's loader and phase
      8's rtdm-serve requests/s beside their figures with PIL from before
      the native decode was wired in (PERF.md);
- 12. one JSON line of kernels; then the last line, the result.
+ 12. multi-GPU (rtdm_tpu_torch/core/mesh.py, parallel/, the mesh of
+     Engine, the trainers and the checkpoints; on the one card, so
+     nothing here runs on two), on MULTI_FRAMES (crops of the example
+     photos, whose rows' outputs differ): (b) first, which of gloo's own
+     collectives take CUDA tensors (GLOO_PROBE_OPS, each in two
+     processes on the card), joined before anything is timed; (a) NCCL
+     at world size 1 in this process, where a mesh line of one rank has
+     no group and the data-parallel paths run no collective: the
+     Squeeze_ErNET bf16, fp32 and int8 engines at batch 256 with a mesh,
+     bit-equal to the engine without one, 4 ACFF launches of the
+     engine's precision a forward counted from 0, host ms with and
+     without the mesh; the data-parallel classifier step (golden case a)
+     and yolov5s-mini step (golden case a, first step) against the steps
+     without a mesh (MULTI_STEP_TOL, YOLO_GATES); NCCL itself, called
+     directly on the group of one: the all-reduce of the classifier's
+     gradients and the all-gather of the engine's output, checked and
+     timed; the legs of __graft_entry__.dryrun_multichip at world size 1
+     (classifier DP for 10 steps with the loss falling, in turns with the
+     same steps without a mesh, both timed and their losses held
+     together; YOLO DP, the halo conv, serving DP, the elastic save and
+     resume); (c) MULTI_RANKS gloo ranks that share the card (the port
+     stages CUDA tensors through the host for gloo): the three engines
+     at batch 256 bit-equal to engines of batch 256 / MULTI_RANKS run on
+     each rank's rows here (and their gap to (a)'s whole batch
+     reported) with each rank's 4 ACFF launches, both train steps
+     against (a)'s, the halo conv against the plain conv, and the
+     elastic ladder 2 -> 1 (this process resumes the ranks' checkpoint)
+     within rtol 2e-3 of their continuation;
+ 13. one JSON line of kernels; then the last line, the result.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
 code 2 and no result without CUDA, or when run outside a checkout.
@@ -1850,10 +1878,11 @@ def _train_golden():
     return golden
 
 
-def golden_train_case(golden, case, device, decay_all=False):
+def golden_train_case(golden, case, device, decay_all=False, mesh=None):
     """The port's train step on ``device`` in one case of the train golden
     (three steps from its init on its batch): per-step metrics and the
-    final variables, flat in the JAX layout."""
+    final variables, flat in the JAX layout. ``mesh``: the data-parallel
+    step over it (every rank handed the whole batch)."""
     from rtdm_tpu_torch.core.precision import policy_from_name
     from rtdm_tpu_torch.data.aider import normalize_batch
     from rtdm_tpu_torch.models import create_model
@@ -1877,7 +1906,7 @@ def golden_train_case(golden, case, device, decay_all=False):
                         decay_kernels_only=not decay_all)
     step = make_train_step(tx, make_classification_loss(
         sp["loss"], label_smoothing=sp["label_smoothing"]),
-        policy_from_name(precision), sp["grad_accum_steps"])
+        policy_from_name(precision), sp["grad_accum_steps"], mesh=mesh)
     state = create_train_state(model, tx)
     x = normalize_batch(torch.from_numpy(golden["images"]).to(device))
     y = torch.from_numpy(golden["labels"]).long().to(device)
@@ -2302,7 +2331,7 @@ def _lww_loss(is_v5, record):
     from rtdm_tpu_torch.train import yolo_loss as tl
 
     def obj_and_cls(p, ps, b_idx, a_idx, gj, gi, vmask, tcls, iou, hyp,
-                    nc):
+                    nc, mesh=None):
         bsz, na, ny, nx, _ = p.shape
         val = torch.where(vmask, (1.0 - hyp.gr)
                           + hyp.gr * iou.detach().clamp_min(0.0),
@@ -2331,25 +2360,29 @@ def _lww_loss(is_v5, record):
             cls = tl._masked_mean(bce.mean(-1), vmask)
         return obj.mean(), cls
 
-    def loss(*args):
+    def loss(*args, **kwargs):
         saved = tl._obj_and_cls
         tl._obj_and_cls = obj_and_cls
         try:
-            return (tl.yolo_loss_v5 if is_v5 else tl.yolo_loss)(*args)
+            return (tl.yolo_loss_v5 if is_v5 else tl.yolo_loss)(*args,
+                                                                **kwargs)
         finally:
             tl._obj_and_cls = saved
     return loss
 
 
 def golden_yolo_case(golden, case, device, work, dtype=None,
-                     bn_momentum=None, lww_record=None, steps=None):
+                     bn_momentum=None, lww_record=None, steps=None,
+                     mesh=None, loss_fn=None):
     """The port's detector train step (``cli/yolo_train.py``'s, as its
     ``train`` builds it) on ``device`` in one case of the detector train
     golden: per step the loss, its components, the gradients' global norm
     and the golden's leaves (``vars``, ``ema``), flat in the JAX layout.
     ``dtype`` float64 runs the model and the loss in float64 (the gate
     readings); ``bn_momentum`` and ``lww_record`` make the controls;
-    ``steps`` cuts the run to its first steps."""
+    ``steps`` cuts the run to its first steps; ``mesh`` runs the
+    data-parallel step over it (every rank handed the whole batch);
+    ``loss_fn`` replaces the case's loss."""
     from rtdm_tpu_torch.cli import yolo_train as yt
     from rtdm_tpu_torch.data.example_set import write_engine_as_cfg
     from rtdm_tpu_torch.models.io import (flatten_tree,
@@ -2366,7 +2399,8 @@ def golden_yolo_case(golden, case, device, work, dtype=None,
     is_v5 = cfg.endswith(".yaml")
     model, heads = yt.load_model(cfg, weights, args.img_size,
                                  2 if is_v5 else None, device)
-    loss_fn, hyp = yt.build_loss(args, {}, heads, 2, is_v5)
+    default_loss, hyp = yt.build_loss(args, {}, heads, 2, is_v5)
+    loss_fn = loss_fn or default_loss
     if lww_record is not None:
         loss_fn = _lww_loss(is_v5, lww_record)
     dt = torch.bfloat16 if precision == "bf16" else torch.float32
@@ -2381,7 +2415,7 @@ def golden_yolo_case(golden, case, device, work, dtype=None,
                              sp["total_steps"])
     ema = ema_init(model) if use_ema else None
     step = yt.make_train_step(model, heads, loss_fn, hyp, dt, accumulate,
-                              args.img_size, ema)
+                              args.img_size, ema, mesh)
     images = torch.from_numpy(golden["images"]).to(device)
     labels = torch.from_numpy(golden["labels"]).to(device)
     nlab = torch.from_numpy(golden["num_labels"]).to(device)
@@ -2919,6 +2953,520 @@ def phase_native_io(card, work, build, serving, yolo_training):
     return records, launches
 
 
+# ---------------------------------------------------------------------------
+# 12. multi-GPU: the data-parallel paths over torch.distributed
+
+
+MULTI_ENGINES = {"bf16": "squeeze-ernet_bf16", "fp32": "squeeze-ernet_bf16",
+                 "int8": "squeeze-ernet_int8"}
+# a data-parallel step against the one-process step, every parameter and
+# statistic: atol + rtol |want| (tests/test_torch_parallel_train.py's gate)
+MULTI_STEP_TOL = (2e-4, 2e-5)
+MULTI_TIMED = 10
+GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather", "send_recv")
+MULTI_RANKS = 2          # gloo ranks that share the one card
+MULTI_CLASSIFIER_STEPS = 10
+
+
+def _multi_frames(n=BATCH):
+    """``n`` frames at 140: random crops (and mirror images) of the example
+    photos resized to 180, so that every row's output differs from the
+    others' and a row out of place shows."""
+    from rtdm_tpu_torch.cli.aider_predict import load_image_rgb, preprocess
+    photos = [preprocess(load_image_rgb(str(p)), 180)[0] for p in
+              sorted((ROOT / "docs" / "examples").glob("*.jpg"))]
+    rng = np.random.default_rng(SEED)
+    out = np.empty((n, 140, 140, 3), np.uint8)
+    for i in range(n):
+        y, x = rng.integers(0, 41, 2)
+        crop = photos[i % len(photos)][y:y + 140, x:x + 140]
+        out[i] = crop[:, ::-1] if rng.random() < 0.5 else crop
+    return out
+
+
+def _multi_engine(quant, mesh=None, batch=BATCH):
+    """The committed Squeeze_ErNET engine of ``quant`` (fp32: the bf16
+    engine's weights) at ``batch``, data-parallel over ``mesh``."""
+    from rtdm_tpu_torch.export.engine import Engine
+    eng = Engine.load(str(ENGINES / MULTI_ENGINES[quant]), mesh=mesh)
+    if quant == "fp32" or batch != eng.spec.batch_size:
+        eng = Engine(dataclasses.replace(eng.spec, quant=quant,
+                                         batch_size=batch),
+                     eng.variables, eng.act_scales if quant == "int8"
+                     else None, mesh=mesh)
+    return eng
+
+
+def _step_excess(got, want):
+    """The largest |got - want| / (atol + rtol |want|) over the leaves
+    (<= 1 meets MULTI_STEP_TOL)."""
+    rtol, atol = MULTI_STEP_TOL
+    return max(float((np.abs(got[k] - want[k])
+                      / (atol + rtol * np.abs(want[k]))).max())
+               for k in want)
+
+
+def elastic_leg(mesh, directory, restore, device="cuda", batch=16):
+    """The elastic leg (__graft_entry__._dryrun_elastic): adamw onecycle,
+    clip 1.0, label smoothing, dropout 0.2, two microbatches of one fixed
+    batch on the mesh's device (else ``device``); without ``restore``: 2
+    steps, save, 2 more (the uninterrupted continuation); with it:
+    restore, the same 2. -> (pre losses, continuation losses, the step
+    saved or restored)."""
+    from rtdm_tpu_torch.core.precision import FP32_POLICY
+    from rtdm_tpu_torch.data.aider import normalize_batch
+    from rtdm_tpu_torch.models import create_model
+    from rtdm_tpu_torch.train.checkpoint import CheckpointManager
+    from rtdm_tpu_torch.train.losses import make_classification_loss
+    from rtdm_tpu_torch.train.schedules import make_optimizer, make_schedule
+    from rtdm_tpu_torch.train.trainer import Trainer
+    rng = np.random.default_rng(7)
+    device = mesh.device if mesh is not None else torch.device(device)
+    x = normalize_batch(torch.from_numpy(rng.integers(
+        0, 255, (batch, 140, 140, 3), dtype=np.uint8)).to(device))
+    y = torch.from_numpy(rng.integers(0, 5, (batch,))).long().to(device)
+    trainer = Trainer(create_model("squeeze-ernet", device=device,
+                                   dropout_rate=0.2),
+                      make_optimizer("adamw", make_schedule(
+                          "onecycle", 3e-4, 100), weight_decay=0.01,
+                          grad_clip=1.0),
+                      make_classification_loss("label_smoothing"),
+                      policy=FP32_POLICY, grad_accum_steps=2, mesh=mesh)
+    state = trainer.init_state()
+    mgr = CheckpointManager(str(directory), mesh)
+
+    def run(state, key0):
+        losses = []
+        for i in range(2):
+            state, m = trainer.train_step(state, x, y, key0 + i)
+            losses.append(float(m["loss"]))
+        return state, losses
+
+    if restore:
+        state, meta = mgr.restore("elastic", state)
+        return meta["pre_losses"], run(state, 200)[1], state.step - 2
+    state, pre = run(state, 100)
+    mgr.save("elastic", state, metadata={"pre_losses": pre})
+    return pre, run(state, 200)[1], state.step - 2
+
+
+def flat_yolo_run(run, prefix=""):
+    """A ``golden_yolo_case`` run as one flat dict (for an ``.npz``)."""
+    out = {f"{prefix}{k}": run[k] for k in ("loss", "comps", "grad_norm")}
+    out.update({f"{prefix}vars/{k}": v for k, v in run["vars"].items()})
+    out.update({f"{prefix}ema/{k}": v for k, v in run["ema"].items()})
+    return out
+
+
+def unflat_yolo_run(res, prefix=""):
+    """``flat_yolo_run``'s inverse."""
+    def part(name):
+        head = f"{prefix}{name}/"
+        return {k[len(head):]: v for k, v in res.items()
+                if k.startswith(head)}
+    return {**{k: res[prefix + k] for k in ("loss", "comps", "grad_norm")},
+            "vars": part("vars"), "ema": part("ema")}
+
+
+def multi_gpu_rank(rank: int, world: int, store: str, out: str) -> None:
+    """Phase 12c, one of MULTI_RANKS processes that share the card over
+    gloo (the port's collectives stage the CUDA tensors through the host):
+    the data-parallel engines with this rank's ACFF launches, the
+    classifier and yolov5s-mini train steps, the halo conv and the elastic
+    leg's save; writes ``<out>/rank<r>.npz``."""
+    from rtdm_tpu_torch.core.mesh import (create_mesh, distributed_init,
+                                          local_mesh)
+    from rtdm_tpu_torch.ops import kernels
+    from rtdm_tpu_torch.ops.acff import LAUNCHES
+    from rtdm_tpu_torch.ops.convpool import conv2d
+    from rtdm_tpu_torch.parallel.comms import all_gather_along
+    from rtdm_tpu_torch.parallel.shard import spatial_shard_conv
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels.build("acff")
+    distributed_init(init_method=store, num_processes=world,
+                     process_id=rank, device="cuda", backend="gloo")
+    mesh = local_mesh(device="cuda")
+    res, frames = {}, _multi_frames()
+    for quant in MULTI_ENGINES:
+        eng = _multi_engine(quant, mesh)
+        eng(frames[:1])                    # warm-up
+        torch.cuda.synchronize()
+        _count_from_zero()
+        res[f"engine/{quant}"] = eng(frames)
+        res[f"launches/{quant}"] = LAUNCHES[quant]
+    metrics, final = golden_train_case(_train_golden(), "a", "cuda",
+                                       mesh=mesh)
+    res.update({f"train/{k}": v for k, v in metrics.items()})
+    res.update({f"train/final/{k}": v for k, v in final.items()})
+    run = golden_yolo_case(_yolo_golden(), "a", "cuda",
+                           Path(out) / f"yolo{rank}", steps=1, mesh=mesh)
+    res.update(flat_yolo_run(run, "yolo/"))
+    smesh = create_mesh((world,), ("spatial",), "cuda")
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(2, 64, 32, 8)).astype(
+        np.float32)).cuda()
+    k = torch.from_numpy((rng.normal(size=(16, 8, 3, 3)) * 0.1).astype(
+        np.float32)).cuda()
+    rows = 64 // world
+    got = all_gather_along(spatial_shard_conv(
+        x[:, rank * rows:(rank + 1) * rows], k, smesh), smesh, "spatial",
+        axis=1)
+    res["spatial_err"] = float((got - conv2d(x, k, None, 1, 1)).abs().max())
+    pre, cont, _ = elastic_leg(mesh, Path(out) / "elastic", restore=False)
+    res["elastic/pre"], res["elastic/cont"] = np.array(pre), np.array(cont)
+    np.savez(Path(out) / f"rank{rank}.npz",
+             **{k: (v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v))
+                for k, v in res.items()})
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def gloo_probe_rank(op: str, rank: int, world: int, store: str,
+                    out: str) -> None:
+    """Phase 12b, one rank: gloo's own ``op`` on a CUDA tensor of the one
+    card, with no staging; writes what came to ``out``."""
+    import datetime
+
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=store, world_size=world,
+                            rank=rank,
+                            timeout=datetime.timedelta(seconds=30))
+    x = torch.full((1024,), float(rank + 1), device="cuda")
+    try:
+        if op == "all_reduce":
+            dist.all_reduce(x)
+            ok = float(x[0]) == sum(range(1, world + 1))
+        elif op == "broadcast":
+            dist.broadcast(x, 0)
+            ok = float(x[-1]) == 1.0
+        elif op == "all_gather":
+            parts = [torch.empty_like(x) for _ in range(world)]
+            dist.all_gather(parts, x)
+            ok = [float(p[0]) for p in parts] == [float(r + 1)
+                                                 for r in range(world)]
+        else:
+            peer = (rank + 1) % world
+            got = torch.empty_like(x)
+            for req in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, x, peer),
+                    dist.P2POp(dist.irecv, got, (rank - 1) % world)]):
+                req.wait()
+            ok = float(got[0]) == float((rank - 1) % world + 1)
+        torch.cuda.synchronize()
+        result = "works" if ok else "wrong result"
+    except RuntimeError as e:
+        result = f"refused: {str(e).splitlines()[0][:160]}"
+    Path(out).write_text(result)
+    dist.destroy_process_group()
+
+
+def _spawn(code: str, n: int, log_dir: Path, tag: str):
+    """``n`` python processes running ``code`` (with RANK set), from the
+    checkout's root."""
+    procs = []
+    for rank in range(n):
+        log = open(log_dir / f"{tag}.{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-c", code.replace("RANK", str(rank))],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT), log))
+    return procs
+
+
+def _join(procs, timeout):
+    try:
+        for p, _ in procs:
+            p.wait(timeout=timeout)
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    return [p.returncode for p, _ in procs]
+
+
+def phase_multi_gpu(card, work, launches):
+    """Phase 12: (b) which of gloo's collectives take CUDA tensors
+    (GLOO_PROBE_OPS, each in its own pair of processes, joined before (a)
+    times anything), (a) NCCL at world size 1 in this process, (c)
+    MULTI_RANKS gloo ranks that share the card through the port's
+    collectives, then the elastic ladder's last leg in this process.
+    Returns the records."""
+    import torch.distributed as dist
+
+    from rtdm_tpu_torch.core.mesh import (create_mesh, distributed_init,
+                                          local_mesh)
+    from rtdm_tpu_torch.ops.convpool import conv2d
+    from rtdm_tpu_torch.parallel.shard import spatial_shard_conv
+    t_phase = time.perf_counter()
+    work = work / "multi_gpu"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    probes = {op: _spawn(
+        f"import chip_smoke; chip_smoke.gloo_probe_rank({op!r}, RANK, 2, "
+        f"'file://{work / ('probe_' + op)}', '{work / op}.RANK')", 2, work,
+        f"probe_{op}") for op in GLOO_PROBE_OPS}
+    rec = {"card": card}
+
+    # (a) NCCL, world size 1: first what is checked and not timed, while
+    # the probes run
+    distributed_init(init_method=f"file://{work / 'nccl_store'}",
+                     num_processes=1, process_id=0, device="cuda")
+    mesh = local_mesh(device="cuda")
+    rec["backend"] = dist.get_backend()
+    if mesh.groups["data"] is not None:
+        raise AssertionError("a mesh of one rank holds a process group: its "
+                             "collectives would not be the identity")
+    frames = _multi_frames()
+    engines, ref = {}, {}
+    for quant in MULTI_ENGINES:
+        plain, dp = _multi_engine(quant), _multi_engine(quant, mesh)
+        want = plain(frames)
+        dp(frames[:1])
+        torch.cuda.synchronize()
+        _count_from_zero()
+        got = dp(frames)
+        _read_launches(f"multi-GPU engine {quant}, NCCL mesh of 1",
+                       launches, _only(quant, 4))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"DP engine {quant}: not bit-equal to the "
+                                 f"engine without a mesh (max |d| "
+                                 f"{np.abs(got - want).max():.3e})")
+        ref[f"engine/{quant}"] = want
+        engines[quant] = (plain, dp)
+
+    golden = _train_golden()
+    want_m, want_f = golden_train_case(golden, "a", "cuda")
+    got_m, got_f = golden_train_case(golden, "a", "cuda", mesh=mesh)
+    ref["train"] = (want_m, want_f)
+    rec["train_step_excess"] = _step_excess(got_f, want_f)
+    rec["train_loss_gap"] = float(np.abs(got_m["loss"] - want_m["loss"]).max()
+                                  / np.abs(want_m["loss"]).max())
+    ygold = _yolo_golden()
+    ywant = golden_yolo_case(ygold, "a", "cuda", work / "yolo_plain",
+                             steps=1)
+    ygot = golden_yolo_case(ygold, "a", "cuda", work / "yolo_dp", steps=1,
+                            mesh=mesh)
+    ref["yolo"] = ywant
+    rec["yolo_step_gaps"] = yolo_gaps(ywant, ygot)
+    say(f"multi-GPU train steps, NCCL mesh of 1 against no mesh: classifier "
+        f"golden case a at {rec['train_step_excess']:.3f} of the "
+        f"{MULTI_STEP_TOL} gate (loss gap {rec['train_loss_gap']:.2e}); "
+        f"yolov5s-mini case a: {_fmt(rec['yolo_step_gaps'])}")
+    if rec["train_step_excess"] > 1.0 or rec["train_loss_gap"] > 1e-4:
+        raise AssertionError("DP classifier step differs from the step "
+                             "without a mesh")
+    if any(g > t for g, t in zip(rec["yolo_step_gaps"], YOLO_GATES["a"])):
+        raise AssertionError("DP yolov5s-mini step differs from the step "
+                             "without a mesh")
+    # the engines of (c)'s ranks' rows, one engine call a rank here
+    per = BATCH // MULTI_RANKS
+    for quant in MULTI_ENGINES:
+        half = _multi_engine(quant, batch=per)
+        ref[f"rows/{quant}"] = np.concatenate([
+            half(frames[r * per:(r + 1) * per]) for r in range(MULTI_RANKS)])
+        apart = float(np.abs(ref[f"rows/{quant}"][:per]
+                             - ref[f"rows/{quant}"][per:2 * per]).max())
+        if apart < 1e-3:
+            raise AssertionError(f"engine {quant}: the ranks' rows give "
+                                 f"outputs {apart:.2e} apart; a row out of "
+                                 "place would not show")
+
+    # (b) which of gloo's own collectives take CUDA tensors
+    probe = {}
+    for op, procs in probes.items():
+        rcs = _join(procs, 120)
+        texts = [(work / f"{op}.{r}").read_text()
+                 if (work / f"{op}.{r}").exists() else None
+                 for r in range(2)]
+        if texts == ["works", "works"]:
+            probe[op] = "works"
+        elif None in texts:
+            probe[op] = f"aborts a process (exit codes {rcs}; {texts})"
+        else:
+            probe[op] = f"refused: {texts}"
+    rec["gloo_cuda_probe"] = probe
+    say("gloo on CUDA tensors, 2 ranks on the one card: " + json.dumps(probe))
+
+    # (a), timed: no other process runs now
+    timed = {}
+    for quant, (plain, dp) in engines.items():
+        times = {"plain": [], "dp": []}
+        for _ in range(MULTI_TIMED):    # in turns: plain, mesh, mesh, plain
+            for label in ("plain", "dp", "dp", "plain"):
+                t0 = time.perf_counter()
+                (plain if label == "plain" else dp)(frames)
+                times[label].append((time.perf_counter() - t0) * 1e3)
+        times = {k: _percentiles(v) for k, v in times.items()}
+        timed[quant] = {"bit_equal": True, "launches": 4,
+                        "ms_median_p90": times}
+        say(f"multi-GPU engine {quant} batch {BATCH}, NCCL mesh of 1: "
+            f"bit-equal to no mesh, 4 {quant} ACFF launches; host ms "
+            f"(median, p90) no mesh {times['plain']}, mesh {times['dp']} "
+            f"[{card}]")
+    rec["engines"] = timed
+    # NCCL itself, on the group of one rank
+    out = engines["bf16"][1].dispatch(frames)
+    gathered = torch.empty_like(out)
+    dist.all_gather_into_tensor(gathered, out)
+    if not torch.equal(gathered, out):
+        raise AssertionError("NCCL all-gather over one rank changed the "
+                             "engine's output")
+    rec["all_gather_ms"] = cuda_ms(
+        lambda: dist.all_gather_into_tensor(gathered, out), 50)
+    del engines
+
+    # the five legs of dryrun_multichip, at world size 1
+    from rtdm_tpu_torch.core.precision import FP32_POLICY
+    from rtdm_tpu_torch.data.aider import normalize_batch
+    from rtdm_tpu_torch.models import create_model
+    from rtdm_tpu_torch.train.losses import make_classification_loss
+    from rtdm_tpu_torch.train.schedules import make_optimizer, make_schedule
+    from rtdm_tpu_torch.train.trainer import Trainer
+    # the DP step and the step without a mesh from one init, in turns
+    trainers = {label: Trainer(create_model("squeeze-ernet"), make_optimizer(
+        "adamw", make_schedule("onecycle", 3e-4, 100), weight_decay=0.01,
+        grad_clip=1.0), make_classification_loss("label_smoothing"),
+        policy=FP32_POLICY, grad_accum_steps=2, mesh=m)
+        for label, m in (("dp", mesh), ("plain", None))}
+    states = {label: t.init_state() for label, t in trainers.items()}
+    x = normalize_batch(torch.from_numpy(frames[:16]).cuda())
+    y = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 5, (16,))).long().cuda()
+    losses = {"dp": [], "plain": []}
+    step_ms = {"dp": [], "plain": []}
+    for i in range(MULTI_CLASSIFIER_STEPS):
+        for label in (("dp", "plain") if i % 2 else ("plain", "dp")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            states[label], m = trainers[label].train_step(states[label], x,
+                                                          y, 1 + i)
+            losses[label].append(float(m["loss"]))
+            step_ms[label].append((time.perf_counter() - t0) * 1e3)
+    params = [p for p in states["dp"].model.parameters()]
+    flat = torch.cat([p.detach().reshape(-1) for p in params])
+    summed = flat.clone()
+    dist.all_reduce(summed)
+    if not torch.equal(summed, flat):
+        raise AssertionError("NCCL all-reduce over one rank changed the "
+                             "gradients")
+    rec["flat_all_reduce_ms"] = cuda_ms(lambda: dist.all_reduce(summed), 50)
+    rec["grad_bytes"] = 4 * flat.numel()
+    rec["dp_vs_plain_loss_gap"] = float(np.max(np.abs(
+        np.array(losses["dp"]) - losses["plain"]) / np.array(
+            losses["plain"])))
+    losses = losses["dp"]
+    smesh = create_mesh((1,), ("spatial",), "cuda")
+    rng = np.random.default_rng(1)
+    xs = torch.from_numpy(rng.normal(size=(2, 64, 32, 8)).astype(
+        np.float32)).cuda()
+    k = torch.from_numpy((rng.normal(size=(16, 8, 3, 3)) * 0.1).astype(
+        np.float32)).cuda()
+    spatial_err = float((spatial_shard_conv(xs, k, smesh)
+                         - conv2d(xs, k, None, 1, 1)).abs().max())
+    probs = _multi_engine("fp32", mesh)(frames[:2])
+    pre, cont, _ = elastic_leg(mesh, work / "elastic1", restore=False)
+    _, resumed, _ = elastic_leg(mesh, work / "elastic1", restore=True)
+    rec["legs_world_1"] = {
+        "classifier_dp_losses": losses,
+        "classifier_step_ms_median_p90": {
+            k: _percentiles(v[1:]) for k, v in step_ms.items()},
+        "yolo_dp_loss": float(ygot["loss"][0]),
+        "spatial_halo_conv_max_err": spatial_err,
+        "serving_dp_rowsum": float(probs.sum(1).mean()),
+        "elastic": {"pre": pre, "continuation": cont, "resumed": resumed}}
+    say(f"multi-GPU five legs, NCCL mesh of 1: classifier DP loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps, "
+        f"{rec['dp_vs_plain_loss_gap']:.1e} from the steps without a mesh "
+        f"(step ms median, p90, in turns "
+        f"{rec['legs_world_1']['classifier_step_ms_median_p90']}), "
+        f"yolo DP loss {rec['legs_world_1']['yolo_dp_loss']:.4f}, halo conv "
+        f"max |err| {spatial_err:.2e}, serving rowsum "
+        f"{rec['legs_world_1']['serving_dp_rowsum']:.6f}, elastic "
+        f"continuation {cont} resumed {resumed}; NCCL on the group of one, "
+        f"called directly: all-reduce of the {rec['grad_bytes']} gradient "
+        f"bytes {rec['flat_all_reduce_ms']:.4f} ms, all-gather of the "
+        f"(256, 5) probabilities {rec['all_gather_ms']:.4f} ms [{card}]")
+    if not losses[-1] < losses[0] or rec["dp_vs_plain_loss_gap"] > 1e-4:
+        raise AssertionError("classifier DP: the loss did not fall, or left "
+                             "the steps without a mesh")
+    if spatial_err > 1e-5 or abs(rec["legs_world_1"][
+            "serving_dp_rowsum"] - 1.0) > 1e-5:
+        raise AssertionError("halo conv or serving leg wrong at world 1")
+    if not np.allclose(resumed, cont, rtol=2e-3):
+        raise AssertionError(f"elastic: resumed {resumed} != {cont}")
+    dist.destroy_process_group()
+
+    # (c) MULTI_RANKS gloo ranks on the one card, through the port's comms
+    t0 = time.perf_counter()
+    rc = _join(_spawn(
+        f"import chip_smoke; chip_smoke.multi_gpu_rank(RANK, {MULTI_RANKS}, "
+        f"'file://{work / 'gloo_store'}', '{work}')", MULTI_RANKS, work,
+        "rank"), 600)
+    if any(rc):
+        tail = (work / f"rank.{rc.index(next(c for c in rc if c))}.log"
+                ).read_text()[-3000:]
+        raise AssertionError(f"the gloo ranks failed ({rc}):\n{tail}")
+    ranks = []
+    for r in range(MULTI_RANKS):
+        with np.load(work / f"rank{r}.npz") as z:
+            ranks.append(dict(z))
+    gloo = {"seconds": time.perf_counter() - t0, "ranks": MULTI_RANKS}
+    for quant in MULTI_ENGINES:
+        equal = [bool(np.array_equal(r[f"engine/{quant}"],
+                                     ref[f"rows/{quant}"])) for r in ranks]
+        gaps = [float(np.abs(r[f"engine/{quant}"] - ref[f"engine/{quant}"])
+                      .max()) for r in ranks]
+        counts = [int(r[f"launches/{quant}"]) for r in ranks]
+        gloo[f"engine_{quant}"] = {
+            "bit_equal_to_rows_engines": equal,
+            "max_abs_prob_diff_to_whole_batch": gaps,
+            "launches_per_rank": counts}
+        for r, n in enumerate(counts):
+            launches[f"multi-GPU engine {quant}, gloo rank {r} of "
+                     f"{MULTI_RANKS}"] = _only(quant, n)
+        if not all(equal) or counts != [4] * MULTI_RANKS:
+            raise AssertionError(f"gloo DP engine {quant}: bit-equal to the "
+                                 f"rows' engines {equal}, launches {counts}")
+    train_f = {k[12:]: v for k, v in ranks[0].items()
+               if k.startswith("train/final/")}
+    gloo["train_step_excess"] = _step_excess(train_f, ref["train"][1])
+    gloo["yolo_step_gaps"] = yolo_gaps(ref["yolo"],
+                                       unflat_yolo_run(ranks[0], "yolo/"))
+    gloo["spatial_max_err"] = [float(r["spatial_err"]) for r in ranks]
+    _, resumed, _ = elastic_leg(None, work / "elastic", restore=True)
+    gloo["elastic"] = {"continuation_2": ranks[0]["elastic/cont"].tolist(),
+                       "resumed_1": resumed}
+    engine_text = []
+    for q in MULTI_ENGINES:
+        e = gloo[f"engine_{q}"]
+        engine_text.append(f"{q} max |dprob| to the whole batch "
+                           f"{max(e['max_abs_prob_diff_to_whole_batch']):.2e}"
+                           f" launches {e['launches_per_rank']}")
+    say(f"multi-GPU, {MULTI_RANKS} gloo ranks on the one card: engines "
+        "bit-equal to the rows' engines, " + ", ".join(engine_text)
+        + f"; classifier step at {gloo['train_step_excess']:.3f} of the gate"
+        f"; yolov5s-mini step {_fmt(gloo['yolo_step_gaps'])}; halo conv "
+        f"max |err| {gloo['spatial_max_err']}; elastic 2 -> 1 "
+        f"{gloo['elastic']}; {gloo['seconds']:.1f} s [{card}]")
+    if gloo["train_step_excess"] > 1.0:
+        raise AssertionError("gloo DP classifier step off the gate")
+    if any(g > t for g, t in zip(gloo["yolo_step_gaps"], YOLO_GATES["a"])):
+        raise AssertionError("gloo DP yolov5s-mini step off YOLO_GATES")
+    if max(gloo["spatial_max_err"]) > 1e-5:
+        raise AssertionError("gloo halo conv differs from the plain conv")
+    if not np.allclose(resumed, gloo["elastic"]["continuation_2"],
+                       rtol=2e-3):
+        raise AssertionError("elastic 2 -> 1 diverged")
+    rec["gloo_ranks"] = gloo
+    rec["seconds"] = time.perf_counter() - t_phase
+    say(f"phase 12: {rec['seconds']:.1f} s")
+    return rec
+
+
 def main() -> int:
     if not (ROOT / "rtdm_tpu_torch").is_dir() or not GOLDEN.exists():
         print("chip_smoke.py runs from the root of a checkout of the "
@@ -3011,7 +3559,11 @@ def main() -> int:
     native_records, native_launches = phase_native_io(
         card, work, native_build, serving, yolo_training)
 
-    # 12. kernels line: one entry a kernel (the QDQ mode of the bf16 kernel
+    # 12. multi-GPU
+    multi_launches = {}
+    multi = phase_multi_gpu(card, work, multi_launches)
+
+    # 13. kernels line: one entry a kernel (the QDQ mode of the bf16 kernel
     # its own), summed over the ACFF blocks of one forward of its main path
     # (the Squeeze_ErNET engine of its precision), launches counted in that
     # forward; the bf16 kernel's entry also lists the veto's launches in
@@ -3053,6 +3605,8 @@ def main() -> int:
                 # the detector trainer launches no hand kernel: 0 on each
                 **{p: n[quant] for p, n in yolo_launches.items()},
                 **{p: n[quant] for p, n in native_launches.items()
+                   if n[quant]},
+                **{p: n[quant] for p, n in multi_launches.items()
                    if n[quant]}},
             "per_shape": [r for r in records if r["quant"] == quant],
         })
@@ -3108,6 +3662,8 @@ def main() -> int:
     say("ACFF launches on phase 10's paths: " + json.dumps(yolo_launches))
     say("native host IO: " + json.dumps(native_records, default=float))
     say("ACFF launches on phase 11's paths: " + json.dumps(native_launches))
+    say("multi-GPU: " + json.dumps(multi, default=float))
+    say("ACFF launches on phase 12's paths: " + json.dumps(multi_launches))
     say(f"fault 2: {len(fault2_rows)} shapes x modes held to the plain "
         f"version")
     say(f"total {time.perf_counter() - t_start:.1f} s")

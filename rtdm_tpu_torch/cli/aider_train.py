@@ -10,6 +10,14 @@ test run the model at inference in the policy's dtype, every ACFF block
 through the fp32 or bf16 kernel. The final weights are a JAX-layout
 ``.npz`` (``models/io.py``), which both packages' engines load.
 
+Training is data-parallel over ``config.mesh()`` (``core/config.py``: the
+process group that ``torchrun`` made, or this process alone), as the JAX
+CLI trains over ``local_mesh()``: the batch is rounded up to a multiple of
+the 'data' ranks times the microbatches, every rank's loader yields the
+same global batches (one seed), and the trainer gives each rank its rows
+(``train/trainer.py``). Rank 0 resolves the run directories and alone
+writes the config, the logs, the checkpoints and the final weights.
+
 Run: python -m rtdm_tpu_torch.cli.aider_train --model squeeze-ernet \\
          --root-dir data/AIDER --train-split .../aider_train.csv ...
 """
@@ -164,7 +172,6 @@ def _load_pretrained(model, path: str) -> None:
 
 
 def train_model(config) -> Tuple[object, Dict[str, List[float]]]:
-    from rtdm_tpu_torch.core.device import resolve_device
     from rtdm_tpu_torch.core.precision import policy_from_name
     from rtdm_tpu_torch.data.aider import (AiderDataset, BatchLoader,
                                            normalize_batch)
@@ -173,6 +180,7 @@ def train_model(config) -> Tuple[object, Dict[str, List[float]]]:
     from rtdm_tpu_torch.models.ernet import CLASS_NAMES
     from rtdm_tpu_torch.models.io import (save_variables,
                                           variables_from_torch_state_dict)
+    from rtdm_tpu_torch.parallel.comms import broadcast_object
     from rtdm_tpu_torch.train.checkpoint import CheckpointManager
     from rtdm_tpu_torch.train.losses import make_classification_loss
     from rtdm_tpu_torch.train.schedules import (PlateauScaler,
@@ -183,16 +191,18 @@ def train_model(config) -> Tuple[object, Dict[str, List[float]]]:
     from rtdm_tpu_torch.utils.meters import AverageMeter
     from rtdm_tpu_torch.utils.paths import increment_path
 
-    device = resolve_device(config.device)
+    mesh = config.mesh()
+    device = mesh.device
+    main = mesh.rank == 0
     policy = policy_from_name(config.precision)
     size = config.image_size
 
-    # one device: the batch tiles the microbatch split only
+    # the batch tiles the 'data' ranks and the microbatch split
     bs = config.batch_size
-    tile = max(config.grad_accum_steps, 1)
+    tile = mesh.shape["data"] * max(config.grad_accum_steps, 1)
     if bs % tile:
         bs = ((bs + tile - 1) // tile) * tile
-        logger.info("batch_size rounded to %d (accum)", bs)
+        logger.info("batch_size rounded to %d (devices x accum)", bs)
 
     train_ds = AiderDataset(config.train_split, config.root_dir, size,
                             train=config.augment, seed=config.seed,
@@ -234,23 +244,30 @@ def train_model(config) -> Tuple[object, Dict[str, List[float]]]:
         logger.info("pretrained weights loaded from %s", config.weights)
     mixing = config.augment
     trainer = Trainer(model, tx, loss_fn, policy=policy,
-                      grad_accum_steps=config.grad_accum_steps,
+                      grad_accum_steps=config.grad_accum_steps, mesh=mesh,
                       num_classes=config.num_classes,
                       mixup_alpha=config.mixup_alpha if mixing else 0.0,
-                      cutmix_alpha=config.cutmix_alpha if mixing else 0.0)
+                      cutmix_alpha=config.cutmix_alpha if mixing else 0.0,
+                      sync_bn=config.sync_batchnorm)
     state = trainer.init_state()
 
-    # collision-free run dirs; resume lands in the same dirs
-    weights_was_default = (config.weights == os.path.join(
-        config.checkpoint_dir, f"{config.model}.npz"))
-    config.checkpoint_dir = increment_path(config.checkpoint_dir,
-                                           exist_ok=config.resume)
-    config.log_dir = increment_path(config.log_dir, exist_ok=config.resume)
-    if weights_was_default:
-        config.weights = os.path.join(config.checkpoint_dir,
-                                      f"{config.model}.npz")
-    config.save()
-    ckpt = CheckpointManager(config.checkpoint_dir)
+    # collision-free run dirs, resolved by rank 0; resume lands in the
+    # same dirs
+    if main:
+        weights_was_default = (config.weights == os.path.join(
+            config.checkpoint_dir, f"{config.model}.npz"))
+        config.checkpoint_dir = increment_path(config.checkpoint_dir,
+                                               exist_ok=config.resume)
+        config.log_dir = increment_path(config.log_dir,
+                                        exist_ok=config.resume)
+        if weights_was_default:
+            config.weights = os.path.join(config.checkpoint_dir,
+                                          f"{config.model}.npz")
+        config.save()
+    (config.checkpoint_dir, config.log_dir,
+     config.weights) = broadcast_object(
+        (config.checkpoint_dir, config.log_dir, config.weights), mesh)
+    ckpt = CheckpointManager(config.checkpoint_dir, mesh)
     history: Dict[str, List[float]] = {k: [] for k in
                                        ("train_loss", "train_acc", "val_loss",
                                         "val_acc", "val_f1", "lr")}
@@ -265,8 +282,9 @@ def train_model(config) -> Tuple[object, Dict[str, List[float]]]:
         x = normalize_batch(torch.from_numpy(images).to(device))
         return x, torch.from_numpy(labels).long().to(device)
 
-    explog = ExperimentLogger(config.log_dir, run_name=config.model,
-                              config=dataclasses.asdict(config))
+    explog = (ExperimentLogger(config.log_dir, run_name=config.model,
+                               config=dataclasses.asdict(config))
+              if main else None)
     stopper = EarlyStopping(config.patience)
     plateau = (PlateauScaler(patience=max(config.epochs // 3, 1),
                              base_lr=config.lr, min_lr=config.min_lr)
@@ -320,12 +338,13 @@ def train_model(config) -> Tuple[object, Dict[str, List[float]]]:
         history["val_acc"].append(val.accuracy)
         history["val_f1"].append(val.f1("weighted"))
         history["lr"].append(lr)
-        explog.log_scalars(epoch, {"train_loss": loss_m.avg,
-                                   "train_acc": acc_m.avg,
-                                   "val_loss": val.loss,
-                                   "val_acc": val.accuracy,
-                                   "val_f1": val.f1("weighted"),
-                                   "lr": lr})
+        if explog:
+            explog.log_scalars(epoch, {"train_loss": loss_m.avg,
+                                       "train_acc": acc_m.avg,
+                                       "val_loss": val.loss,
+                                       "val_acc": val.accuracy,
+                                       "val_f1": val.f1("weighted"),
+                                       "lr": lr})
         logger.info(
             "epoch %d/%d: train loss %.4f acc %.4f | val loss %.4f acc %.4f "
             "f1 %.4f | lr %.2e | %.1fs", epoch + 1, config.epochs,
@@ -358,6 +377,8 @@ def train_model(config) -> Tuple[object, Dict[str, List[float]]]:
     test = run_eval(test_loader)
     logger.info("test:\n%s", test.report())
 
+    if not main:
+        return state, history
     wpath = save_variables(config.weights, variables_from_torch_state_dict(
         state.model.state_dict()))
     logger.info("final weights saved to %s", wpath)

@@ -7,8 +7,12 @@ memory, each forward ending in its copy back to the host). ``--engine``
 evaluates an engine directory (any precision, int8 included);
 ``--weights`` runs the raw weights through an engine at ``--precision``
 with the batch of ``--batch-size``. Runs on the card unless ``--device
-cpu``; ``--data-parallel`` (all local devices) waits for the multi-GPU
-slice.
+cpu``. ``--data-parallel`` shards each batch over the ranks of the process
+group (``core/mesh.py::data_parallel_mesh``: launched by ``torchrun``, one
+rank a card; without a launcher one rank, and nothing changes): every rank
+loads the same batches and returns the all-gathered probabilities. The
+raw-weights path needs ``--batch-size`` to divide over the ranks; an
+engine directory checks its own batch.
 
 Run: python -m rtdm_tpu_torch.cli.evaluate_classification \
          --model squeeze-ernet --weights ... --root-dir data/AIDER \
@@ -33,15 +37,12 @@ def main(argv=None):
     p.add_argument("--num-workers", type=int, default=8)
     p.add_argument("--precision", default="bf16", choices=["bf16", "fp32"])
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard eval batches over all local devices "
-                   "(multi-GPU slice, not ported yet)")
+                   help="shard eval batches over the ranks of the process "
+                   "group (torchrun; one rank without a launcher)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
     if not args.engine and not args.weights:
         p.error("--weights is required unless --engine is given")
-    if args.data_parallel:
-        raise SystemExit("--data-parallel waits for the multi-GPU slice of "
-                         "the port")
 
     import numpy as np
 
@@ -50,14 +51,25 @@ def main(argv=None):
     from rtdm_tpu_torch.export.engine import Engine, build_engine
     from rtdm_tpu_torch.models.ernet import CLASS_NAMES
 
+    mesh = None
+    if args.data_parallel:
+        from rtdm_tpu_torch.core.mesh import (data_parallel_mesh,
+                                              require_data_divisible)
+        mesh = data_parallel_mesh(args.device)
+        if not args.engine:
+            try:
+                require_data_divisible(args.batch_size, mesh,
+                                       "--batch-size")
+            except ValueError as e:
+                raise SystemExit(str(e))
     if args.engine:
-        engine = Engine.load(args.engine, device=args.device)
+        engine = Engine.load(args.engine, device=args.device, mesh=mesh)
     else:
         from rtdm_tpu_torch.models.io import load_variables
         engine = build_engine(args.model, load_variables(args.weights),
                               quant=args.precision,
                               batch_size=args.batch_size, verify=False,
-                              device=args.device)
+                              device=args.device, mesh=mesh)
     ds = AiderDataset(args.test_split, args.root_dir,
                       engine.spec.image_size)
     loader = BatchLoader(ds, args.batch_size, num_workers=args.num_workers)

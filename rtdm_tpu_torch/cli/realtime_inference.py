@@ -13,7 +13,12 @@ batch k+1 is enqueued before batch k is copied back.
 
 ``--power`` reports energy per frame from ``utils/profiler.py``'s
 ``PowerMonitor``: busy time x the card's power limit. ``--data-parallel``
-waits for the multi-GPU slice of the port and raises. ``main`` returns a
+shards each engine batch over the ranks of the process group
+(``core/mesh.py::data_parallel_mesh``: ``torchrun``, one rank a card;
+without a launcher one rank, and nothing changes), every rank reading the
+same frames; the tail batch is padded to the full batch as always, and the
+raw-weights path needs ``--batch`` to divide over the ranks. ``main``
+returns a
 dict: frames, the FPS and ms/batch report, mJ/frame with ``--power``, and
 for a bounded source each frame's (class index, confidence).
 
@@ -59,13 +64,10 @@ def main(argv=None):
     p.add_argument("--power-plot", help="write the power trace PNG here "
                    "(calculate-power-usage.py plot analogue)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard engine batches over all local devices "
-                   "(multi-GPU slice, not ported yet)")
+                   help="shard engine batches over the ranks of the process "
+                   "group (torchrun; one rank without a launcher)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = p.parse_args(argv)
-    if args.data_parallel:
-        raise SystemExit("--data-parallel waits for the multi-GPU slice of "
-                         "the port")
 
     import numpy as np
 
@@ -77,9 +79,19 @@ def main(argv=None):
     # dispatch() enqueues a batch without waiting for it, so batch k+1 is
     # in flight while batch k is copied back (real-time-inference.py's hot
     # loop, :179-208, is strictly serial)
+    mesh = None
+    if args.data_parallel:
+        from rtdm_tpu_torch.core.mesh import (data_parallel_mesh,
+                                              require_data_divisible)
+        mesh = data_parallel_mesh(args.device)
+        if not args.engine:
+            try:
+                require_data_divisible(args.batch, mesh, "--batch")
+            except ValueError as e:
+                raise SystemExit(str(e))
     if args.engine:
         from rtdm_tpu_torch.export.engine import Engine
-        engine = Engine.load(args.engine, device=args.device)
+        engine = Engine.load(args.engine, device=args.device, mesh=mesh)
     else:
         if not args.weights:
             p.error("--weights is required unless --engine is given")
@@ -89,7 +101,7 @@ def main(argv=None):
                               quant={"int8": "bf16"}.get(args.quant,
                                                          args.quant),
                               batch_size=args.batch, verify=False,
-                              device=args.device)
+                              device=args.device, mesh=mesh)
     size = engine.spec.image_size
 
     def resize_frame(frame):

@@ -1,8 +1,13 @@
 """YOLO detector training CLI.
 
-Counterpart of ``rtdm_tpu/cli/yolo_train.py`` on one device (``--device``,
-the card unless the CPU is asked for): a darknet ``.cfg`` or v5 ``.yaml``
-model (``export/detector.py::load_detection_model``, ``.npz`` weights),
+Counterpart of ``rtdm_tpu/cli/yolo_train.py`` (``--device``, the card
+unless the CPU is asked for), data-parallel over the ranks of the process
+group that ``torchrun`` made (one rank without a launcher: JAX's
+``local_mesh()``): the batch rounds down to a multiple of the ranks, every
+rank's loader yields the same global batches, the step and the eval give
+each rank its rows, and rank 0 writes the run's files. A darknet ``.cfg``
+or v5 ``.yaml`` model (``export/detector.py::load_detection_model``,
+``.npz`` weights),
 the training sample of ``data/odder.py`` (mosaic, the affine warp, HSV,
 flip; rect buckets; image weights), the v3 or v5 loss
 (``train/yolo_loss.py``), either optimizer family
@@ -165,8 +170,8 @@ def parse_args(argv=None):
                    help="reuse an existing project/name dir instead of "
                         "incrementing")
     p.add_argument("--sync-bn", action="store_true",
-                   help="accepted for parity: the port trains on one card, "
-                        "whose batch statistics are the whole batch's")
+                   help="accepted for parity: BatchNorm's statistics are "
+                        "already the global batch's over the data mesh")
     p.add_argument("--device", default="cuda",
                    help="torch device (the card unless 'cpu' is asked for)")
     args = p.parse_args(argv)
@@ -223,7 +228,7 @@ def head_bias_names(model: torch.nn.Module) -> list:
 
 
 def make_train_step(model, heads, loss_fn, hyp, dtype: torch.dtype,
-                    accumulate: int, img_size: int, ema=None):
+                    accumulate: int, img_size: int, ema=None, mesh=None):
     """``step(opt, images, labels, nlab, it, seed, train_size=None,
     update_bn=True) -> (loss, comps, grad_norm)`` (device tensors: loss and
     the (box, obj, cls) components over the microbatches, each divided by
@@ -235,16 +240,30 @@ def make_train_step(model, heads, loss_fn, hyp, dtype: torch.dtype,
     and its labels scaled) or None for a rect batch (no resize; the loss
     takes max(h, w)); ``update_bn=False`` keeps the running statistics
     (BN burn-in); ``opt`` a ``YoloOptimizer``; ``it`` the step, which seeds
-    the dropout masks and sets the EMA's decay."""
+    the dropout masks and sets the EMA's decay.
+
+    Under ``mesh`` (``core/mesh.py``) every rank is handed the global batch
+    and the step is data-parallel as JAX's GSPMD step is: each global
+    microbatch is cut to the rank's rows, BatchNorm takes the global
+    batch's statistics and the dropout masks are the rows' slices of the
+    global mask (``models/layers.py::set_mesh``), the loss is the rank's
+    share of the global one (``train/yolo_loss.py``), and the gradients are
+    summed over the ranks before the division, the clip and the update;
+    the loss and components returned are the global ones."""
     from torch.func import functional_call
 
+    from rtdm_tpu_torch.core.mesh import data_sharding
     from rtdm_tpu_torch.core.precision import tf32
     from rtdm_tpu_torch.export.detector import resize_bilinear
     from rtdm_tpu_torch.models.layers import (set_bn_update,
-                                              set_dropout_generator)
+                                              set_dropout_generator, set_mesh)
+    from rtdm_tpu_torch.parallel.comms import all_reduce_grads, psum_along
     from rtdm_tpu_torch.train.ema import ema_update
     from rtdm_tpu_torch.train.trainer import _draw_generators
     cast = conv_param_names(model) if dtype != torch.float32 else set()
+    shard = data_sharding(mesh) if mesh is not None else None
+    if mesh is not None:
+        set_mesh(model, mesh)
 
     def forward(x):
         if not cast:
@@ -255,6 +274,12 @@ def make_train_step(model, heads, loss_fn, hyp, dtype: torch.dtype,
 
     def step(opt, images, labels, nlab, it: int, seed: int,
              train_size=None, update_bn: bool = True):
+        chunks = list(zip(images.chunk(accumulate), labels.chunk(accumulate),
+                          nlab.chunk(accumulate)))
+        if shard is not None:
+            chunks = [tuple(shard(t) for t in c) for c in chunks]
+            images, labels = (torch.cat([c[0] for c in chunks]),
+                              torch.cat([c[1] for c in chunks]))
         if train_size is None:
             loss_size = max(images.shape[1], images.shape[2])
         else:
@@ -274,11 +299,12 @@ def make_train_step(model, heads, loss_fn, hyp, dtype: torch.dtype,
             try:
                 for i, (im, lb, nl) in enumerate(zip(
                         images.chunk(accumulate), labels.chunk(accumulate),
-                        nlab.chunk(accumulate))):
+                        [c[2] for c in chunks])):
                     set_dropout_generator(model, _draw_generators(
                         seed, it, i, images.device)[1])
                     loss, comps = loss_fn(forward(input_of(im, dtype)),
-                                          heads, lb, nl, loss_size, hyp)
+                                          heads, lb, nl, loss_size, hyp,
+                                          mesh=mesh)
                     loss.backward()
                     loss_sum = loss_sum + loss.detach()
                     comp_sum = comp_sum + torch.stack(
@@ -286,6 +312,9 @@ def make_train_step(model, heads, loss_fn, hyp, dtype: torch.dtype,
             finally:
                 set_bn_update(model, True)
                 set_dropout_generator(model, None)
+            if mesh is not None:
+                all_reduce_grads(list(model.parameters()), mesh)
+                loss_sum, comp_sum = psum_along((loss_sum, comp_sum), mesh)
             if accumulate > 1:
                 for p in model.parameters():
                     if p.grad is not None:
@@ -302,9 +331,13 @@ class EvalStep:
     """The JAX ``eval_step``: the model at inference in the run's dtype
     (a copy whose conv parameters are cast, BatchNorm in fp32), decode, and
     ``batched_nms(pred, 0.001, 0.6, 300, 512, multi_label=True)``. ``load``
-    copies a state dict (the live weights or the EMA) in."""
+    copies a state dict (the live weights or the EMA) in. Under ``mesh``
+    each rank runs its rows of the batch and ``(det, count)`` is
+    all-gathered."""
 
-    def __init__(self, model, heads, dtype: torch.dtype, img_size: int):
+    def __init__(self, model, heads, dtype: torch.dtype, img_size: int,
+                 mesh=None):
+        self.mesh = mesh
         self.model = copy.deepcopy(model).eval().requires_grad_(False)
         cast = conv_param_names(self.model)
         for name, p in self.model.named_parameters():
@@ -317,14 +350,23 @@ class EvalStep:
 
     @torch.no_grad()
     def __call__(self, images: torch.Tensor):
+        from rtdm_tpu_torch.core.mesh import data_sharding
         from rtdm_tpu_torch.core.precision import tf32
         from rtdm_tpu_torch.ops.nms import batched_nms
         from rtdm_tpu_torch.ops.yolo import decode_all
+        from rtdm_tpu_torch.parallel.comms import all_gather_along
+        if self.mesh is not None:
+            images = data_sharding(self.mesh)(images)
         with tf32(self.dtype != torch.float32):
             raw = self.model(input_of(images, self.dtype))
         with tf32(False):
             pred = decode_all(raw, self.heads, self.img_size)
-            return batched_nms(pred, 0.001, 0.6, 300, 512, multi_label=True)
+            det, count = batched_nms(pred, 0.001, 0.6, 300, 512,
+                                     multi_label=True)
+        if self.mesh is None:
+            return det, count
+        return (all_gather_along(det, self.mesh),
+                all_gather_along(count, self.mesh))
 
 
 def build_loss(args, hyp_file, heads, nc: int, is_v5: bool):
@@ -366,13 +408,19 @@ def build_optimizer(args, model, is_v5: bool, hyp_file,
         steps_per_epoch=steps_per_epoch)
 
 
-def accumulation(batch_size: int, nominal_batch: int, accumulate=None) -> int:
+def accumulation(batch_size: int, nominal_batch: int, accumulate=None,
+                 ranks: int = 1) -> int:
     """The microbatch count: --accumulate, or the nominal batch over the
-    batch, clamped to the largest divisor of the batch not above it (the
-    step splits the loader batch)."""
+    batch, clamped to the largest count not above it that splits the
+    loader batch into microbatches of whole rows on each of ``ranks``
+    (a divisor of ``batch_size / ranks``). JAX's GSPMD step reshards an
+    uneven microbatch and clamps to a divisor of the batch alone; the
+    counts differ only where that one leaves a microbatch that does not
+    divide over the ranks."""
     a = (max(accumulate, 1) if accumulate is not None
          else max(round(nominal_batch / batch_size), 1))
-    return max(d for d in range(1, a + 1) if batch_size % d == 0)
+    return max(d for d in range(1, a + 1)
+               if batch_size % (d * ranks) == 0)
 
 
 def multi_scale_sizes(img_size: int, gs: int = 32) -> list:
@@ -402,13 +450,14 @@ def load_model(cfg: str, weights, img_size: int, num_classes, device):
 
 
 def train(args):
-    from rtdm_tpu_torch.core.device import resolve_device
+    from rtdm_tpu_torch.core.mesh import data_parallel_mesh
     from rtdm_tpu_torch.data.odder import (DetectionBatchLoader,
                                            DetectionDataset, load_data_spec)
     from rtdm_tpu_torch.eval.map import DetectionEvaluator
     from rtdm_tpu_torch.models.io import (save_variables,
                                           variables_from_torch_state_dict)
     from rtdm_tpu_torch.ops.nms import xywh_to_xyxy
+    from rtdm_tpu_torch.parallel.comms import broadcast_object
     from rtdm_tpu_torch.train.checkpoint import CheckpointManager
     from rtdm_tpu_torch.train.ema import ema_init
     from rtdm_tpu_torch.train.schedules import make_prebias_optimizer
@@ -416,18 +465,30 @@ def train(args):
     from rtdm_tpu_torch.utils.experiment_log import ExperimentLogger
     from rtdm_tpu_torch.utils.paths import increment_path
 
-    device = resolve_device(args.device)
+    mesh = data_parallel_mesh(args.device)
+    device, main = mesh.device, mesh.rank == 0
     if args.notest:
         args.eval_every = 0
-    # the run directory first: anything written before it is resolved
-    # would make it look taken
-    args.output = increment_path(args.output,
-                                 exist_ok=args.resume or args.exist_ok)
+    # the run directory first (rank 0's): anything written before it is
+    # resolved would make it look taken
+    if main:
+        args.output = increment_path(args.output,
+                                     exist_ok=args.resume or args.exist_ok)
+    args.output = broadcast_object(args.output, mesh)
     if args.sync_bn:
-        logger.info("--sync-bn: one card, whose batch statistics are "
-                    "already the whole batch's")
-    bs = max(args.batch_size, 1)
-    accumulate = accumulation(bs, args.nominal_batch, args.accumulate)
+        logger.info("--sync-bn: the batch statistics are already the global "
+                    "batch's over the %d-rank data mesh",
+                    mesh.shape["data"])
+    # the batch rounds down to a multiple of the ranks
+    n_dev = mesh.shape["data"]
+    bs = max(args.batch_size // n_dev, 1) * n_dev
+    accumulate = accumulation(bs, args.nominal_batch, args.accumulate,
+                              n_dev)
+    one_device = accumulation(bs, args.nominal_batch, args.accumulate)
+    if accumulate != one_device:
+        logger.info("accumulate %d, not %d: each microbatch of the batch "
+                    "of %d must divide over the %d ranks", accumulate,
+                    one_device, bs, n_dev)
 
     dcfg = load_data_spec(args.data)
     base = str(dcfg["base"])
@@ -498,12 +559,13 @@ def train(args):
             new_a = check_anchor_order(new_a.reshape(apx.shape))
             for h, a in zip(heads, new_a):
                 h.anchors_px = np.asarray(a, np.float32)
-            os.makedirs(args.output, exist_ok=True)
             d = parse_v5_yaml(model.yaml_text, nc)
             d["anchors"] = [[float(x) for x in lv.reshape(-1)]
                             for lv in new_a]
             anchor_yaml = os.path.join(args.output, "model-autoanchor.yaml")
-            yaml_io.dump(d, anchor_yaml)
+            if main:
+                os.makedirs(args.output, exist_ok=True)
+                yaml_io.dump(d, anchor_yaml)
             logger.info("autoanchor: BPR %.3f < 0.98 -> evolved anchors; "
                         "updated yaml saved to %s", bpr, anchor_yaml)
         else:
@@ -516,26 +578,29 @@ def train(args):
     dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     ema = ema_init(model) if args.ema else None
     step_fn = make_train_step(model, heads, loss_fn, hyp, dtype, accumulate,
-                              args.img_size, ema)
-    eval_step = EvalStep(model, heads, dtype, args.img_size)
+                              args.img_size, ema, mesh)
+    eval_step = EvalStep(model, heads, dtype, args.img_size, mesh)
     n_burn = (args.bn_burn_in if args.bn_burn_in is not None
               else (0 if is_v5 else 200))
     sizes = multi_scale_sizes(args.img_size) if args.multi_scale else None
     size_rng = np.random.default_rng(args.seed + 7)
     prebias_names = head_bias_names(model) if args.prebias > 0 else []
 
-    os.makedirs(args.output, exist_ok=True)
-    explog = ExperimentLogger(args.output, run_name="yolo",
-                              config=vars(args))
+    # rank 0 writes the run's files
+    plots = main and not args.no_plots
+    if main:
+        os.makedirs(args.output, exist_ok=True)
+    explog = (ExperimentLogger(args.output, run_name="yolo",
+                               config=vars(args)) if main else None)
     results_path = os.path.join(args.output, "results.txt")
     names = list(dcfg.get("names") or [])
-    if not args.no_plots:
+    if plots:
         from rtdm_tpu_torch.utils.plots import plot_label_distribution
         rows = np.concatenate([lab for lab in train_ds.labels if len(lab)]
                               or [np.zeros((0, 5), np.float32)])
         plot_label_distribution(rows, os.path.join(args.output,
                                                    "labels.png"), names)
-    ckpt_mgr = CheckpointManager(args.output)
+    ckpt_mgr = CheckpointManager(args.output, mesh)
     best_fitness, start_epoch, it, history = -1.0, 0, 0, []
     if args.resume:
         if not ckpt_mgr.exists("last_state"):
@@ -570,7 +635,7 @@ def train(args):
         if in_prebias and prebias_opt is None:
             prebias_opt = make_prebias_optimizer(model, prebias_names)
         for batch, _valid in train_loader:
-            if not args.no_plots and epoch == start_epoch and nb < 3:
+            if plots and epoch == start_epoch and nb < 3:
                 from rtdm_tpu_torch.utils.plots import plot_detection_batch
                 plot_detection_batch(
                     batch["image"], batch["labels"], batch["num_labels"],
@@ -645,7 +710,7 @@ def train(args):
                                      f1])))
             line += (f" | P {res['mp']:.3f} R {res['mr']:.3f} "
                      f"mAP@0.5 {res['map50']:.3f}")
-            if not args.nosave or epoch == args.epochs - 1:
+            if main and (not args.nosave or epoch == args.epochs - 1):
                 var_now = weights_now()
                 save_variables(os.path.join(args.output, "last.npz"),
                                var_now)
@@ -663,14 +728,16 @@ def train(args):
                             "map50": res["map50"]})
             if is_v5:
                 scalars["map"] = res["map"]
-        explog.log_scalars(epoch, scalars)
-        with open(results_path, "a") as f:
-            f.write(line + "\n")
+        if main:
+            explog.log_scalars(epoch, scalars)
+            with open(results_path, "a") as f:
+                f.write(line + "\n")
         history.append({"loss": ep_loss.tolist(),
                         "map50": None if res is None else res["map50"],
                         "map": None if (res is None or not is_v5)
                         else res["map"]})
-        if args.save_period > 0 and (epoch + 1) % args.save_period == 0:
+        if main and args.save_period > 0 and \
+                (epoch + 1) % args.save_period == 0:
             save_variables(os.path.join(args.output,
                                         f"backup{epoch + 1}.npz"),
                            weights_now())
@@ -683,21 +750,27 @@ def train(args):
                                metadata={"epoch": epoch, "it": it,
                                          "best_fitness": best_fitness,
                                          "history": history})
-    if not aborted and not args.no_strip and ckpt_mgr.exists("last_state"):
+    if not aborted and not args.no_strip:
         # the strip at the end (yolov5/utils/general.py:587): a completed
-        # run keeps only the deployable weights
+        # run keeps only the deployable weights. Every rank calls remove
+        # (it waits for rank 0's delete), whatever it saw: rank 0 may have
+        # deleted the file before another rank looked
+        stripped = ckpt_mgr.exists("last_state")
         ckpt_mgr.remove("last_state")
-        logger.info("optimizer state stripped; best.npz/last.npz keep the "
-                    "deployable weights")
-    if not args.no_plots and os.path.exists(results_path):
+        if stripped:
+            logger.info("optimizer state stripped; best.npz/last.npz keep "
+                        "the deployable weights")
+    if plots and os.path.exists(results_path):
         from rtdm_tpu_torch.utils.plots import plot_detector_results
         plot_detector_results(results_path,
                               os.path.join(args.output, "results.png"))
-    explog.close()
+    if explog:
+        explog.close()
     return {"model": model, "heads": heads, "ema": ema,
             "history": history, "best_fitness": best_fitness,
             "last_eval": last_res, "aborted": aborted,
-            "last_loss": [float(v) for v in ep_loss[:3]]}
+            "last_loss": [float(v) for v in ep_loss[:3]],
+            "accumulate": accumulate}
 
 
 # ---------------------------------------------------------------------------
@@ -743,9 +816,13 @@ def evolve(args):
                                              V3_EVOLVE_META, V5_EVOLVE_META,
                                              EvolveLog)
     from rtdm_tpu_torch.train.evolve import fitness as fitness_of
+    from rtdm_tpu_torch.core.mesh import data_parallel_mesh
     from rtdm_tpu_torch.train.evolve import mutate, select_parent
     from rtdm_tpu_torch.utils import yaml_io
 
+    if data_parallel_mesh(args.device).size > 1:
+        raise SystemExit("--evolve runs as one process: its generations "
+                         "write evolve.txt and their hyp files in turn")
     rng = np.random.default_rng(args.seed)
     is_v5 = args.cfg.endswith((".yaml", ".yml"))
     meta = V5_EVOLVE_META if is_v5 else V3_EVOLVE_META

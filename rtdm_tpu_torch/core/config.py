@@ -5,9 +5,13 @@ trainer's knobs, the image size inferred from the model name (ErNET 240,
 the squeeze variants 140), the batch doubled once for the squeeze
 variants, and a JSON dump that ``load`` reads back without doubling again.
 ``device`` is where training runs: the card unless the caller asks for the
-CPU. ``mesh_shape`` and ``sync_batchnorm`` are kept so that a JAX run's
-``config.json`` loads here and the port's loads there; the port trains on
-one card.
+CPU. ``mesh()`` is the mesh a run trains over (``core/mesh.py``): with
+``mesh_shape`` ``()`` a 1-D 'data' mesh over every rank of the process
+group (one rank without a launcher), else ``create_mesh(mesh_shape)``
+over the axes 'data', 'spatial', 'model'. ``sync_batchnorm`` False keeps
+each rank's BatchNorm statistics its own (the DDP form); True takes the
+global batch's, as JAX's GSPMD step does. Both keep the JAX file format,
+so that a JAX run's ``config.json`` loads here and the port's loads there.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ class TrainingConfig:
     cutmix_alpha: float = 0.1
     dropout: float = 0.2
 
-    # Precision and device (mesh_shape, sync_batchnorm: the file format)
+    # Precision, device and mesh
     precision: str = "bf16"          # 'bf16' | 'fp32'
     mesh_shape: Tuple[int, ...] = ()
     sync_batchnorm: bool = True
@@ -91,6 +95,21 @@ class TrainingConfig:
         if self.weights is None:
             self.weights = os.path.join(self.checkpoint_dir,
                                         f"{self.model}.npz")
+
+    def mesh(self):
+        """Join the launcher's process group (a no-op without one) and
+        build the run's mesh on ``device``."""
+        from rtdm_tpu_torch.core.mesh import (create_mesh, distributed_init,
+                                              local_mesh)
+        distributed_init(device=self.device)
+        if not self.mesh_shape:
+            return local_mesh(device=self.device)
+        names = ("data", "spatial", "model")
+        if len(self.mesh_shape) > len(names):
+            raise ValueError(f"mesh_shape {self.mesh_shape}: at most "
+                             f"{len(names)} axes ({names})")
+        return create_mesh(self.mesh_shape, names[:len(self.mesh_shape)],
+                           self.device)
 
     def save(self, path: Optional[str] = None) -> str:
         path = path or os.path.join(self.log_dir, "config.json")

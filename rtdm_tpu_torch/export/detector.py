@@ -31,8 +31,15 @@ TTA (``spec.tta``) pools the predictions at three scales before one NMS
 ``jax.image.resize``: its antialiased triangle weights, built as JAX's
 ``scale_and_translate`` builds them.
 
+``mesh`` (``core/mesh.py``) makes a data-parallel detector over the
+mesh's 'data' axis, its batch a multiple of it: every rank is handed the
+global batch, runs the network, decode and NMS over its own frames (each
+rank suppresses within its own frames, as each shard does in JAX) and
+all-gathers ``(det, count)``, so each rank returns what the one-process
+detector returns.
+
 Not ported: ``exec.xla`` / the executable cache (XLA executables, TPU
-only: neither written nor read) and ``mesh`` (multi-GPU, raises).
+only: neither written nor read).
 """
 
 from __future__ import annotations
@@ -47,10 +54,13 @@ import torch
 from torch.profiler import record_function
 
 from rtdm_tpu_torch.core.device import resolve_device
+from rtdm_tpu_torch.core.mesh import (data_sharding, mesh_device,
+                                      require_data_divisible)
 from rtdm_tpu_torch.core.precision import tf32
 from rtdm_tpu_torch.models.io import (flatten_tree, load_variables,
                                       save_variables,
                                       torch_state_dict_from_variables)
+from rtdm_tpu_torch.parallel.comms import all_gather_along
 
 
 @dataclasses.dataclass
@@ -209,20 +219,20 @@ class Detector:
     def __init__(self, model, variables: Dict[str, Any], spec: DetectorSpec,
                  batch_size: int = 1, heads=None,
                  act_scales: Optional[Dict[str, float]] = None,
-                 device="cuda", mesh=None):
+                 device=None, mesh=None):
         """``model`` is a port ``Darknet`` or ``YoloV5`` (its structure;
-        the weights come from ``variables``, a JAX-layout tree)."""
+        the weights come from ``variables``, a JAX-layout tree);
+        ``device`` the card unless given, under ``mesh`` the mesh's."""
         from rtdm_tpu_torch.models.darknet import Darknet
         from rtdm_tpu_torch.quant.int8 import (quantize_detector,
                                                quantize_params)
         if mesh is not None:
-            raise NotImplementedError(
-                "multi-GPU detector engines are not ported yet (ROADMAP "
-                "queue 1, multi-GPU)")
+            require_data_divisible(batch_size, mesh, "detector batch")
         self.spec = spec
         self.model = model           # unfused: what save_detector writes
         self.batch_size = int(batch_size)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self.act_scales = ({k: float(v) for k, v in act_scales.items()}
                            if act_scales else None)
         if spec.quant == "int8" and not self.act_scales:
@@ -313,7 +323,11 @@ class Detector:
         for holding two runs' NMS decisions against each other
         (``eval/detection.py::candidates``)."""
         x, n = self._upload(images_u8)
-        return self.decoded(x)[:n].float().cpu().numpy()
+        return self._gathered(self.decoded(x))[:n].float().cpu().numpy()
+
+    def _gathered(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``x`` (this rank's alone without a mesh)."""
+        return x if self.mesh is None else all_gather_along(x, self.mesh)
 
     @torch.inference_mode()
     def forward(self, u8: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -332,7 +346,8 @@ class Detector:
 
     def _upload(self, images_u8) -> Tuple[torch.Tensor, int]:
         """n uint8 NHWC frames -> (one engine batch on the device, the
-        frames first and zero frames after them; n)."""
+        frames first and zero frames after them; under a mesh this rank's
+        rows of it; n)."""
         frames = torch.as_tensor(images_u8)
         n = frames.shape[0]
         b = self.batch_size
@@ -342,10 +357,14 @@ class Detector:
                 or frames.shape[-1] != 3:
             raise ValueError(f"expected uint8 frames (n, h, w, 3), got "
                              f"{frames.dtype} {tuple(frames.shape)}")
+        rows = (slice(0, b) if self.mesh is None
+                else data_sharding(self.mesh).rows(b))
         with record_function("det:upload"):
-            x = torch.zeros((b,) + tuple(frames.shape[1:]),
-                            dtype=torch.uint8, device=self.device)
-            x[:n].copy_(frames)
+            x = torch.zeros((rows.stop - rows.start,)
+                            + tuple(frames.shape[1:]), dtype=torch.uint8,
+                            device=self.device)
+            mine = frames[rows.start:min(rows.stop, n)]
+            x[:mine.shape[0]].copy_(mine)
         return x, n
 
     def submit(self, images_u8):
@@ -353,7 +372,7 @@ class Detector:
         (device det, device count, n); slice ``[:n]``."""
         x, n = self._upload(images_u8)
         det, count = self.forward(x)
-        return det, count, n
+        return self._gathered(det), self._gathered(count), n
 
     def warmup(self, shapes=None) -> float:
         """Run a zero batch at each (h, w) (default: the square) once;
@@ -455,11 +474,12 @@ def save_detector(det: Detector, directory: str, sealed: bool = False
     return directory
 
 
-def load_detector(directory: str, device="cuda", spec_overrides=None,
+def load_detector(directory: str, device=None, spec_overrides=None,
                   batch_size: Optional[int] = None, mesh=None) -> Detector:
-    """Rebuild a saved engine on ``device``. ``spec_overrides`` replaces
-    DetectorSpec fields (thresholds, classes, max_det, ...); ``batch_size``
-    replaces the stored batch."""
+    """Rebuild a saved engine on ``device`` (the card unless given; under
+    ``mesh`` a data-parallel one on the mesh's). ``spec_overrides``
+    replaces DetectorSpec fields (thresholds, classes, max_det, ...);
+    ``batch_size`` replaces the stored batch."""
     with open(os.path.join(directory, "spec.json")) as f:
         raw = json.load(f)
     family = raw.pop("family", "darknet")

@@ -17,8 +17,14 @@ kernels QDQ'd per output channel on the JAX-layout tree, then cast to
 bf16; activations QDQ'd with the calibrated ``act_scales`` at every conv
 and dense input, inside the ACFF blocks by the bf16 kernel's QDQ mode.
 ``build_engine`` calibrates an int8 engine on the frames it is given
-(``quant/calibrate.py``). Not ported: ``mesh`` (multi-GPU) and
-``exec_cache`` (serialized XLA executables).
+(``quant/calibrate.py``). Not ported: ``exec_cache`` (serialized XLA
+executables).
+
+``mesh`` (``core/mesh.py``; a data-parallel engine over the mesh's 'data'
+axis, the batch a multiple of it): every rank is handed the global batch,
+runs its own rows through the network on its device (its ACFF blocks
+launching the kernel of the engine's precision on them) and all-gathers
+the outputs, so each rank returns what the one-process engine returns.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from rtdm_tpu_torch.core.device import resolve_device
+from rtdm_tpu_torch.core.mesh import (data_sharding, mesh_device,
+                                      require_data_divisible)
 from rtdm_tpu_torch.core.precision import (ENGINE_DTYPES, cast_floating,
                                            normalized_quant, tf32)
 from rtdm_tpu_torch.data.aider import (IMAGENET_MEAN, IMAGENET_STD,
@@ -40,6 +47,7 @@ from rtdm_tpu_torch.models.ernet import create_model, input_size_for
 from rtdm_tpu_torch.models.io import (flatten_tree, infer_num_classes,
                                       load_variables,
                                       torch_state_dict_from_variables)
+from rtdm_tpu_torch.parallel.comms import all_gather_along
 from rtdm_tpu_torch.quant.calibrate import calibrate_classifier
 from rtdm_tpu_torch.quant.int8 import quantize_classifier, quantize_params
 
@@ -64,17 +72,22 @@ class Engine:
 
     def __init__(self, spec: EngineSpec, variables: Dict[str, Any],
                  act_scales: Optional[Dict[str, np.ndarray]] = None,
-                 device="cuda"):
+                 device=None, mesh=None):
+        """``device``: the card unless given; under ``mesh``, the mesh's
+        (``core/mesh.py::mesh_device``)."""
         quant = spec.normalized_quant()
         if quant not in ENGINE_DTYPES:
             raise ValueError(f"unknown engine precision {spec.quant!r}")
         if quant == "int8" and not act_scales:
             raise ValueError("an int8 engine needs act_scales (calibrate "
                              "with build_engine(..., calib_images=...))")
+        if mesh is not None:
+            require_data_divisible(spec.batch_size, mesh, "engine batch")
         self.spec = spec
         self.variables = variables
         self.act_scales = act_scales
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh_device(mesh, device)
         self.dtype = ENGINE_DTYPES[quant]
         if quant == "int8":
             variables = {**variables,
@@ -88,7 +101,8 @@ class Engine:
     @torch.inference_mode()
     def dispatch(self, images_u8) -> torch.Tensor:
         """Enqueue a batch without waiting for it: returns the float32
-        device output, padded to ``spec.batch_size``; slice ``[:n]``."""
+        device output, padded to ``spec.batch_size``; slice ``[:n]``. Under
+        a mesh the rank runs its rows and the output is all-gathered."""
         b, s = self.spec.batch_size, self.spec.image_size
         n = images_u8.shape[0]
         if n > b:
@@ -97,12 +111,18 @@ class Engine:
         if frames.dtype != torch.uint8 or tuple(frames.shape[1:]) != (s, s, 3):
             raise ValueError(f"expected uint8 frames (n, {s}, {s}, 3), got "
                              f"{frames.dtype} {tuple(frames.shape)}")
-        x = torch.zeros((b, s, s, 3), dtype=torch.uint8, device=self.device)
-        x[:n].copy_(frames)
+        rows = (slice(0, b) if self.mesh is None
+                else data_sharding(self.mesh).rows(b))
+        x = torch.zeros((rows.stop - rows.start, s, s, 3), dtype=torch.uint8,
+                        device=self.device)
+        mine = frames[rows.start:min(rows.stop, n)]
+        x[:mine.shape[0]].copy_(mine)
         if self.dtype != torch.float32:   # bf16 convs take no TF32
-            return self._forward(x)
-        with tf32(False):
-            return self._forward(x)
+            out = self._forward(x)
+        else:
+            with tf32(False):
+                out = self._forward(x)
+        return out if self.mesh is None else all_gather_along(out, self.mesh)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         x = normalize_batch(x, self._mean, self._std).to(self.dtype)
@@ -124,7 +144,7 @@ class Engine:
         return directory
 
     @classmethod
-    def load(cls, directory: str, device="cuda") -> "Engine":
+    def load(cls, directory: str, device=None, mesh=None) -> "Engine":
         with open(os.path.join(directory, "spec.json")) as f:
             spec = EngineSpec(**json.load(f))
         variables = load_variables(os.path.join(directory, "params.npz"))
@@ -133,7 +153,7 @@ class Engine:
         if os.path.exists(scales_path):
             with np.load(scales_path) as archive:
                 act_scales = dict(archive)
-        return cls(spec, variables, act_scales, device=device)
+        return cls(spec, variables, act_scales, device=device, mesh=mesh)
 
 
 def load_model(spec: EngineSpec, variables: Dict[str, Any], device,
@@ -158,14 +178,14 @@ def build_engine(model_name: str, variables: Dict[str, Any],
                  calib_images: Optional[np.ndarray] = None,
                  calib_method: str = "percentile",
                  verify: bool = True, num_classes: Optional[int] = None,
-                 device="cuda") -> Engine:
+                 device=None, mesh=None) -> Engine:
     """Build (and optionally verify) an engine from a variables tree.
 
     For int8, ``calib_images`` (uint8 NHWC frames) calibrate the activation
     scales by ``calib_method`` ('percentile' or 'entropy') on the fp32
-    model on ``device``. ``num_classes`` defaults to what the checkpoint's
-    head says. Verify runs one zero frame and checks the output's shape and
-    finiteness."""
+    model on the engine's device. ``num_classes`` defaults to what the
+    checkpoint's head says. Verify runs one zero frame and checks the
+    output's shape and finiteness."""
     if num_classes is None:
         num_classes = infer_num_classes(variables) or 5
     image_size = input_size_for(model_name)
@@ -176,11 +196,11 @@ def build_engine(model_name: str, variables: Dict[str, Any],
     if spec.normalized_quant() == "int8":
         if calib_images is None:
             raise ValueError("int8 engines need calib_images")
-        device = resolve_device(device)
         act_scales = calibrate_classifier(
-            load_model(spec, variables, device, torch.float32),
+            load_model(spec, variables, mesh_device(mesh, device),
+                       torch.float32),
             calib_images, method=calib_method)
-    engine = Engine(spec, variables, act_scales, device=device)
+    engine = Engine(spec, variables, act_scales, device=device, mesh=mesh)
     if verify:
         out = engine(np.zeros((1, image_size, image_size, 3), np.uint8))
         if out.shape != (1, num_classes) or not np.all(np.isfinite(out)):

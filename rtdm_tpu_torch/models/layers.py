@@ -30,7 +30,9 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
+from rtdm_tpu_torch.core.mesh import data_sharding
 from rtdm_tpu_torch.ops.convpool import conv2d, depthwise_conv2d
+from rtdm_tpu_torch.parallel.comms import pmean_along
 
 PairT = Union[int, Tuple[int, int]]
 
@@ -143,12 +145,20 @@ class BatchNorm(nn.Module):
     statistics with ``momentum`` and the unbiased ``var * n / (n - 1)``,
     unless ``update_stats`` is False (the detectors' BN burn-in,
     ``set_bn_update``): then the batch still normalizes and its statistics
-    are dropped. At inference it uses the running statistics as stored."""
+    are dropped. At inference it uses the running statistics as stored.
+
+    ``group`` (a ``core/mesh.py::Mesh``, set by ``set_mesh`` or
+    ``set_bn_group``; the JAX ``axis_name``) syncs the statistics over the
+    mesh's 'data' axis: ``mean`` and ``mean2`` are
+    averaged over the ranks by an all-reduce that carries gradients (a
+    rank's inputs get the terms of every rank's loss), ``var`` is taken
+    from the averages in fp32 and ``n`` counts every rank's rows."""
 
     def __init__(self, channels: int, epsilon: float = 1e-5,
                  momentum: float = 0.1):
         super().__init__()
         self.epsilon, self.momentum = epsilon, momentum
+        self.group = None
         self.update_stats = True
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
@@ -161,8 +171,13 @@ class BatchNorm(nn.Module):
         acc = acc_dtype(x)
         xf = x.to(acc)
         mean = xf.mean((0, 1, 2))
-        var = xf.square().mean((0, 1, 2)) - mean.square()
+        mean2 = xf.square().mean((0, 1, 2))
         n = x.shape[0] * x.shape[1] * x.shape[2]
+        if self.group is not None:
+            mean, mean2 = pmean_along(torch.stack([mean, mean2]),
+                                      self.group).unbind()
+            n *= self.group.shape["data"]
+        var = mean2 - mean.square()
         if self.update_stats:
             with torch.no_grad():
                 m = self.momentum
@@ -191,12 +206,19 @@ class Dropout(nn.Module):
     probability 1 - rate and kept units are scaled by 1 / (1 - rate); the
     mask is drawn from ``generator`` (on x's device), which the trainer
     sets before each forward (``set_dropout_generator``). Identity at
-    inference and at rate 0."""
+    inference and at rate 0.
+
+    Under a data-parallel ``group`` (``set_mesh``; a ``Mesh``) each rank
+    draws the mask of the global batch, its rows times the 'data' axis,
+    from the same generator state and keeps its own rows, so that the
+    masks are the one-process run's bit for bit (JAX's GSPMD step draws
+    one global mask)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
         self.generator: Optional[torch.Generator] = None
+        self.group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.rate == 0.0:
@@ -205,8 +227,14 @@ class Dropout(nn.Module):
             raise RuntimeError("Dropout in training needs a generator "
                                "(set_dropout_generator)")
         keep = 1.0 - self.rate
-        mask = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) < keep
+        if self.group is None:
+            mask = torch.rand(x.shape, generator=self.generator,
+                              device=x.device) < keep
+        else:
+            n = self.group.shape["data"]
+            mask = data_sharding(self.group)(torch.rand(
+                (x.shape[0] * n,) + x.shape[1:], generator=self.generator,
+                device=x.device) < keep)
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 
@@ -217,6 +245,28 @@ def set_bn_update(model: nn.Module, on: bool) -> None:
     for m in model.modules():
         if isinstance(m, BatchNorm):
             m.update_stats = on
+
+
+def set_bn_group(model: nn.Module, group) -> None:
+    """Every ``BatchNorm`` of ``model`` syncs its statistics over ``group``
+    (a ``Mesh``), or keeps them local (None). The one route by which a
+    model's BatchNorm is synced (the JAX ``bn_axis``): ``set_mesh`` calls
+    it, and so does a caller of the DDP-form step
+    (``parallel/shard.py``)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.group = group
+
+
+def set_mesh(model: nn.Module, mesh, sync_bn: bool = True) -> None:
+    """Run ``model`` data-parallel over ``mesh`` (None: on one process) as
+    JAX's GSPMD step runs it: dropout masks sliced from the global mask,
+    and the BatchNorm statistics the global batch's unless ``sync_bn`` is
+    False (then each rank's own: the DDP form)."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.group = mesh
+    set_bn_group(model, mesh if sync_bn else None)
 
 
 def set_dropout_generator(model: nn.Module,

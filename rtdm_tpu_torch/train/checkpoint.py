@@ -9,6 +9,11 @@ same way (the detector trainer's full state: parameters and BatchNorm
 buffers, optimizer, EMA); ``remove`` deletes a tag and its metadata (the
 strip at the end of a run). Loads use ``torch.load(weights_only=True)``
 from the directory given and nowhere else.
+
+Under a data-parallel ``mesh`` the state is replicated, so rank 0 writes
+and every rank waits for it (a barrier) before going on; every rank reads.
+A state saved at one world size restores at any other (the elastic
+resume): nothing in it depends on the world size.
 """
 
 from __future__ import annotations
@@ -20,13 +25,21 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from rtdm_tpu_torch.parallel.comms import barrier
 from rtdm_tpu_torch.train.trainer import TrainState
 
 
 class CheckpointManager:
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, mesh=None):
         self.directory = os.path.abspath(directory)
+        self.mesh = mesh
+        self.writes = mesh is None or mesh.rank == 0
         os.makedirs(self.directory, exist_ok=True)
+
+    def _written(self) -> None:
+        """Every rank waits here until rank 0's write is done."""
+        if self.mesh is not None:
+            barrier(self.mesh)
 
     def _path(self, tag: str) -> str:
         return os.path.join(self.directory, f"{tag}.pt")
@@ -34,14 +47,16 @@ class CheckpointManager:
     def save(self, tag: str, state: TrainState,
              metadata: Optional[Dict[str, Any]] = None) -> str:
         path = self._path(tag)
-        torch.save({"step": state.step,
-                    "model": state.model.state_dict(),
-                    "optimizer": state.optimizer.state_dict()}, path + ".tmp")
-        os.replace(path + ".tmp", path)
-        if metadata is not None:
-            with open(os.path.join(self.directory, f"{tag}.meta.json"),
-                      "w") as f:
-                json.dump(_jsonify(metadata), f, indent=2)
+        if self.writes:
+            torch.save({"step": state.step,
+                        "model": state.model.state_dict(),
+                        "optimizer": state.optimizer.state_dict()},
+                       path + ".tmp")
+            os.replace(path + ".tmp", path)
+            if metadata is not None:
+                with open(self._meta_path(tag), "w") as f:
+                    json.dump(_jsonify(metadata), f, indent=2)
+        self._written()
         return path
 
     def restore(self, tag: str, state: TrainState
@@ -66,11 +81,13 @@ class CheckpointManager:
                   metadata: Optional[Dict[str, Any]] = None) -> str:
         """Store ``tree`` (state dicts, tensors, numbers) under ``tag``."""
         path = self._path(tag)
-        torch.save(tree, path + ".tmp")
-        os.replace(path + ".tmp", path)
-        if metadata is not None:
-            with open(self._meta_path(tag), "w") as f:
-                json.dump(_jsonify(metadata), f, indent=2)
+        if self.writes:
+            torch.save(tree, path + ".tmp")
+            os.replace(path + ".tmp", path)
+            if metadata is not None:
+                with open(self._meta_path(tag), "w") as f:
+                    json.dump(_jsonify(metadata), f, indent=2)
+        self._written()
         return path
 
     def restore_tree(self, tag: str, device="cpu"
@@ -85,9 +102,11 @@ class CheckpointManager:
         return tree, metadata
 
     def remove(self, tag: str) -> None:
-        for path in (self._path(tag), self._meta_path(tag)):
-            if os.path.exists(path):
-                os.remove(path)
+        if self.writes:
+            for path in (self._path(tag), self._meta_path(tag)):
+                if os.path.exists(path):
+                    os.remove(path)
+        self._written()
 
     def _meta_path(self, tag: str) -> str:
         return os.path.join(self.directory, f"{tag}.meta.json")

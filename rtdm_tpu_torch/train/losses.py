@@ -41,16 +41,37 @@ def _reduce(per_example: torch.Tensor, denom: torch.Tensor,
     return per_example.sum() / denom
 
 
+def _row_weights(labels: torch.Tensor, weights, ignore_index: int
+                 ) -> torch.Tensor:
+    """Each row's class weight (1 without weights), 0 at ignore_index."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    w = (_class_vector(weights, safe) if weights is not None
+         else torch.ones(labels.shape, device=labels.device))
+    return torch.where(valid, w, torch.zeros_like(w))
+
+
+def mean_denominator(labels: torch.Tensor, weights=None,
+                     ignore_index: int = -100, weighted: bool = False
+                     ) -> torch.Tensor:
+    """What a loss's 'mean' divides its sum by, from the labels alone: the
+    sum of the valid rows' class weights (``weighted``: cross entropy), else
+    the count of valid rows. A data-parallel step divides each rank's sum
+    by the global batch's."""
+    if weighted:
+        return _row_weights(labels, weights, ignore_index).sum() \
+            .clamp_min(1e-8)
+    return (labels != ignore_index).sum().clamp_min(1)
+
+
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   weights: Optional[Sequence[float]] = None,
                   ignore_index: int = -100,
                   reduction: str = "mean") -> torch.Tensor:
     """CE over valid targets, with optional per-class weights; 'mean'
     divides by the sum of the valid rows' weights."""
-    _, nll, valid, safe = _nll(logits, labels, ignore_index)
-    w = (_class_vector(weights, safe) if weights is not None
-         else torch.ones_like(nll))
-    w = torch.where(valid, w, torch.zeros_like(w))
+    _, nll, _, _ = _nll(logits, labels, ignore_index)
+    w = _row_weights(labels, weights, ignore_index)
     return _reduce(nll * w, w.sum().clamp_min(1e-8), reduction)
 
 
@@ -99,19 +120,26 @@ def make_classification_loss(name: str,
                              focal_gamma: float = 2.0,
                              class_weights: Optional[np.ndarray] = None):
     """'crossentropy' | 'label_smoothing' | 'focal' (and their aliases) ->
-    ``loss(logits, labels, reduction='mean')``."""
+    ``loss(logits, labels, reduction='mean')``, whose ``denominator(labels)``
+    is what its mean divides the sum by (``mean_denominator``)."""
     name = name.lower().replace("-", "_")
     if name in ("ce", "crossentropy", "cross_entropy"):
-        return lambda logits, labels, reduction="mean": cross_entropy(
-            logits, labels, weights=class_weights, reduction=reduction)
-    if name in ("label_smoothing", "labelsmoothing", "smooth",
-                "label_smoothing_ce"):
-        return (lambda logits, labels, reduction="mean":
-                label_smoothing_cross_entropy(
-                    logits, labels, epsilon=label_smoothing,
-                    reduction=reduction))
-    if name == "focal":
-        return lambda logits, labels, reduction="mean": focal_loss(
-            logits, labels, gamma=focal_gamma, alpha=class_weights,
-            reduction=reduction)
-    raise ValueError(f"unknown loss '{name}'")
+        def loss(logits, labels, reduction="mean"):
+            return cross_entropy(logits, labels, weights=class_weights,
+                                 reduction=reduction)
+        loss.denominator = lambda labels: mean_denominator(
+            labels, class_weights, weighted=True)
+    elif name in ("label_smoothing", "labelsmoothing", "smooth",
+                  "label_smoothing_ce"):
+        def loss(logits, labels, reduction="mean"):
+            return label_smoothing_cross_entropy(
+                logits, labels, epsilon=label_smoothing, reduction=reduction)
+        loss.denominator = mean_denominator
+    elif name == "focal":
+        def loss(logits, labels, reduction="mean"):
+            return focal_loss(logits, labels, gamma=focal_gamma,
+                              alpha=class_weights, reduction=reduction)
+        loss.denominator = mean_denominator
+    else:
+        raise ValueError(f"unknown loss '{name}'")
+    return loss

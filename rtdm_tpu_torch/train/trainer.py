@@ -1,6 +1,6 @@
 """Classifier trainer: the train step, the eval step and a thin holder.
 
-Counterpart of ``rtdm_tpu/train/trainer.py`` on one device:
+Counterpart of ``rtdm_tpu/train/trainer.py``:
 
 - ``TrainState`` holds the model (the fp32 masters), the torch optimizer,
   the count of updates made (``step``) and ``version``, which grows
@@ -30,6 +30,23 @@ Counterpart of ``rtdm_tpu/train/trainer.py`` on one device:
 - An fp32 policy runs its steps with TF32 off, a bf16 one with it on
   (``core/precision.py::tf32``): cuDNN's default would make fp32 training
   TF32 training.
+
+With a ``mesh`` (``core/mesh.py``) both steps are data-parallel with the
+numerics of JAX's GSPMD step: the one-process step on the global batch, up
+to the order of the sums. Every rank is handed the global batch. Each
+microbatch is mixed whole (the partner rows may be another rank's), then
+each rank takes its rows; the dropout masks are the rows' slices of the
+global mask and BatchNorm takes the global batch's statistics
+(``models/layers.py::set_mesh``; ``sync_bn=False`` normalizes each rank's
+rows by their own, the DDP form, and keeps rank 0's running statistics on
+every rank, as DDP's ``broadcast_buffers`` does); each rank's loss is its
+rows' sum over the global batch's denominator, so the gradients summed
+over the ranks (one all-reduce after the microbatches) are the global
+mean's, which the optimizer then clips by their global norm. The eval
+step runs each rank's rows through the kernels and sums the counts over
+the ranks. Parameters and optimizer state stay replicated: every rank
+applies the same update. Without a mesh both steps run the same code on
+one rank that holds every row, with no collective.
 """
 
 from __future__ import annotations
@@ -42,9 +59,12 @@ import numpy as np
 import torch
 from torch import nn
 
+from rtdm_tpu_torch.core.mesh import Mesh, RowShard, data_sharding
 from rtdm_tpu_torch.core.precision import DEFAULT_POLICY, Policy, tf32
 from rtdm_tpu_torch.models.acff import clear_packed_arguments
-from rtdm_tpu_torch.models.layers import set_dropout_generator
+from rtdm_tpu_torch.models.layers import set_dropout_generator, set_mesh
+from rtdm_tpu_torch.parallel.comms import (all_reduce_grads,
+                                           broadcast_buffers, psum_along)
 from rtdm_tpu_torch.train.batch_augment import (cutmix_apply, draw_cutmix,
                                                 draw_mixup, mixup_apply)
 from rtdm_tpu_torch.train.schedules import Optimizer
@@ -87,9 +107,20 @@ def make_train_step(tx: Optimizer,
                     policy: Policy = DEFAULT_POLICY,
                     grad_accum_steps: int = 1,
                     mixup_alpha: float = 0.0,
-                    cutmix_alpha: float = 0.0):
+                    cutmix_alpha: float = 0.0,
+                    mesh: Optional[Mesh] = None,
+                    sync_bn: bool = True):
     """Build ``step(state, images, labels, seed) -> (state, metrics)``;
-    images are normalized fp32 NHWC on the model's device, labels int."""
+    images are normalized fp32 NHWC on the model's device, labels int
+    (under ``mesh``: the global batch on every rank). ``loss_fn`` takes
+    ``reduction``; its ``denominator(labels)`` (the losses of
+    ``train/losses.py`` have one; else the row count) is what its mean
+    divides by: the loss is the rank's rows' sum over the global
+    microbatch's denominator, one rank's rows being all of them without a
+    mesh."""
+    shard = data_sharding(mesh) if mesh is not None else RowShard(0, 1)
+    denominator = getattr(loss_fn, "denominator",
+                          lambda labels: labels.shape[0])
 
     def maybe_mix(rng: np.random.Generator, images: torch.Tensor):
         """-> (images, perm, lam); identity when mixing is off."""
@@ -105,20 +136,30 @@ def make_train_step(tx: Optimizer,
             return mixed, perm, lam
         return images, np.arange(b), 1.0
 
+    def shard_loss(logits32, labels, rows):
+        """This rank's share of the global microbatch's mean loss."""
+        return (loss_fn(logits32, labels[rows], reduction="sum")
+                / denominator(labels))
+
     def microbatch(state, params, images, labels, seed, i):
         rng, gen = _draw_generators(seed, state.step, i, images.device)
         images, perm, lam = maybe_mix(rng, images)
         set_dropout_generator(state.model, gen)
+        perm = torch.as_tensor(perm, device=labels.device)
+        rows = shard.rows(images.shape[0])
         logits = torch.func.functional_call(
             state.model, policy.cast_to_compute(params),
-            (images.to(policy.compute_dtype),))
+            (images[rows].to(policy.compute_dtype),))
         logits32 = logits.float()
-        perm = torch.as_tensor(perm, device=labels.device)
-        loss = (lam * loss_fn(logits32, labels)
-                + (1.0 - lam) * loss_fn(logits32, labels[perm]))
+        loss = (lam * shard_loss(logits32, labels, rows)
+                + (1.0 - lam) * shard_loss(logits32, labels[perm], rows))
         loss.backward()
-        acc = (logits.argmax(-1) == labels).float().mean()
-        return loss.detach(), acc
+        correct = (logits.argmax(-1) == labels[rows]).float().sum()
+        sums = torch.stack([loss.detach(), correct])
+        if mesh is not None:
+            sums = psum_along(sums, mesh)
+        loss, correct = sums.unbind()
+        return loss, correct / labels.shape[0]
 
     def step(state: TrainState, images: torch.Tensor, labels: torch.Tensor,
              seed: int) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -127,17 +168,22 @@ def make_train_step(tx: Optimizer,
             raise ValueError(f"batch {images.shape[0]} does not split into "
                              f"{a} microbatches")
         model = state.model.train()
+        set_mesh(model, mesh, sync_bn)
         params = dict(model.named_parameters())
         state.optimizer.zero_grad(set_to_none=True)
         with tf32(_tf32_for(policy)):
             parts = [microbatch(state, params, x, y, seed, i)
                      for i, (x, y) in enumerate(zip(images.chunk(a),
                                                     labels.chunk(a)))]
+            if mesh is not None:
+                all_reduce_grads(list(params.values()), mesh)
             if a > 1:
                 for p in params.values():
                     if p.grad is not None:
                         p.grad.div_(a)
             grad_norm = tx.step(state.optimizer, state.step)
+            if mesh is not None and not sync_bn:
+                broadcast_buffers(model, mesh)
         set_dropout_generator(model, None)
         state.step += 1
         state.weights_changed()
@@ -150,10 +196,13 @@ def make_train_step(tx: Optimizer,
 
 def make_eval_step(model: nn.Module, policy: Policy = DEFAULT_POLICY,
                    loss_fn: Optional[Callable] = None,
-                   num_classes: int = 5):
+                   num_classes: int = 5, mesh: Optional[Mesh] = None):
     """Build ``step(state, images, labels, valid) -> metrics`` over a
     compute-dtype copy of ``model``'s architecture (kept in eval mode and
-    loaded from the state whenever its ``version`` moved)."""
+    loaded from the state whenever its ``version`` moved). Under ``mesh``
+    each rank evaluates its rows of the global batch and the counts and
+    the loss sum are summed over the ranks."""
+    shard = data_sharding(mesh) if mesh is not None else RowShard(0, 1)
     eval_model = copy.deepcopy(model).eval().requires_grad_(False)
     for p in eval_model.parameters():
         p.data = p.data.to(policy.compute_dtype)
@@ -166,11 +215,12 @@ def make_eval_step(model: nn.Module, policy: Policy = DEFAULT_POLICY,
         if synced[0] != key:
             eval_model.load_state_dict(state.model.state_dict())
             synced[0] = key
+        mask = torch.arange(labels.shape[0], device=labels.device) < valid
+        images, labels, mask = shard(images), shard(labels), shard(mask)
         with tf32(_tf32_for(policy)):
             logits = eval_model(images.to(policy.compute_dtype),
                                 apply_softmax=False).float()
         preds = logits.argmax(-1)
-        mask = torch.arange(labels.shape[0], device=labels.device) < valid
         out = {
             "correct": ((preds == labels) & mask).sum(),
             "count": torch.tensor(int(valid)),
@@ -180,6 +230,9 @@ def make_eval_step(model: nn.Module, policy: Policy = DEFAULT_POLICY,
             per_ex = loss_fn(logits, labels, reduction="none")
             out["loss_sum"] = torch.where(mask, per_ex,
                                           torch.zeros_like(per_ex)).sum()
+        if mesh is not None:
+            out.update(psum_along({k: v for k, v in out.items()
+                                   if k != "count"}, mesh))
         return out
 
     step.model = eval_model
@@ -201,16 +254,20 @@ class Trainer:
     ``cli/aider_train.py``."""
 
     def __init__(self, model, tx, loss_fn, policy=DEFAULT_POLICY,
-                 grad_accum_steps=1, num_classes=5, eval_loss_fn=None,
-                 mixup_alpha=0.0, cutmix_alpha=0.0):
+                 grad_accum_steps=1, mesh=None, num_classes=5,
+                 eval_loss_fn=None, mixup_alpha=0.0, cutmix_alpha=0.0,
+                 sync_bn=True):
         self.model = model
         self.tx = tx
+        self.mesh = mesh
         self.train_step = make_train_step(tx, loss_fn, policy,
                                           grad_accum_steps,
                                           mixup_alpha=mixup_alpha,
-                                          cutmix_alpha=cutmix_alpha)
+                                          cutmix_alpha=cutmix_alpha,
+                                          mesh=mesh, sync_bn=sync_bn)
         self.eval_step = make_eval_step(model, policy,
-                                        eval_loss_fn or loss_fn, num_classes)
+                                        eval_loss_fn or loss_fn, num_classes,
+                                        mesh)
 
     def init_state(self) -> TrainState:
         return create_train_state(self.model, self.tx)

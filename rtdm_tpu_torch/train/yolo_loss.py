@@ -14,6 +14,14 @@ mask, so the loss has no data-dependent shapes:
   two neighbours, v5 box decode and CIoU, the per-level objectness balance
   ``[4, 1, 0.4]``, and the total times the batch size.
 
+Under a data-parallel ``mesh`` (``core/mesh.py``) each rank passes its
+rows of the global batch, and its loss is its share of the global batch's:
+every mean divides the rank's sum by the global count (the masked means'
+denominators all-reduced, carrying no gradient; the objectness mean over
+every rank's cells), and v5 scales by the global batch size. The ranks'
+losses then sum to the one-process loss, and so do their gradients. A mean
+of per-rank losses is another loss.
+
 ``tobj`` is a scatter-max of the IoU ratio into the cells
 (``scatter_reduce(..., "amax")``), deterministic where candidates collide
 in one cell as the reference's ``.at[].max`` is; an index-put would keep
@@ -31,6 +39,7 @@ import torch
 import torch.nn.functional as F
 
 from rtdm_tpu_torch.models.layers import acc_dtype, softplus
+from rtdm_tpu_torch.parallel.comms import psum_along
 from rtdm_tpu_torch.ops.boxes import bbox_iou, wh_iou_matrix
 from rtdm_tpu_torch.ops.yolo import raw_to_train_layout
 
@@ -92,9 +101,17 @@ def _focal(bce, x, t, gamma, alpha):
     return bce * alpha_f * torch.pow(1.0 - p_t, gamma)
 
 
-def _masked_mean(x, mask, eps=1e-9):
+def _masked_mean(x, mask, mesh=None, eps=1e-9):
     m = mask.to(x.dtype)
-    return (x * m).sum() / torch.clamp((m).sum(), min=eps)
+    den = m.sum() if mesh is None else psum_along(m.sum(), mesh)
+    return (x * m).sum() / torch.clamp(den, min=eps)
+
+
+def _mean(x, mesh=None):
+    """The mean over every rank's elements of ``x``."""
+    if mesh is None:
+        return x.mean()
+    return x.sum() / (x.numel() * mesh.shape["data"])
 
 
 def _slot_valid(labels, num_labels):
@@ -111,7 +128,8 @@ def _candidate_index(shape, dim, device):
         shape).reshape(-1)
 
 
-def _obj_and_cls(p, ps, b_idx, a_idx, gj, gi, vmask, tcls, iou, hyp, nc):
+def _obj_and_cls(p, ps, b_idx, a_idx, gj, gi, vmask, tcls, iou, hyp, nc,
+                 mesh=None):
     """(objectness BCE mean, class BCE masked mean) of one level."""
     bsz, na, ny, nx, _ = p.shape
     val = torch.where(vmask, (1.0 - hyp.gr)
@@ -135,17 +153,17 @@ def _obj_and_cls(p, ps, b_idx, a_idx, gj, gi, vmask, tcls, iou, hyp, nc):
         if hyp.fl_gamma > 0:
             cls_bce = _focal(cls_bce, ps[:, 5:], t_one, hyp.fl_gamma,
                              hyp.fl_alpha)
-        cls_term = _masked_mean(cls_bce.mean(-1), vmask)
-    return obj_bce.mean(), cls_term
+        cls_term = _masked_mean(cls_bce.mean(-1), vmask, mesh)
+    return _mean(obj_bce, mesh), cls_term
 
 
 def yolo_loss(raw_maps: Sequence[torch.Tensor], heads,
               labels: torch.Tensor, num_labels: torch.Tensor,
-              img_size: int, hyp: YoloHyp = YoloHyp()
+              img_size: int, hyp: YoloHyp = YoloHyp(), mesh=None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The v3 loss. raw_maps: per-head NHWC maps (B, ny, nx, na*(5+nc));
     labels (B, M, 5) = class, cx, cy, w, h in letterboxed pixels;
-    num_labels (B,)."""
+    num_labels (B,); ``mesh``: this rank's share (module docstring)."""
     nc = heads[0].num_classes
     dev = labels.device
     total_box = torch.zeros((), device=dev)
@@ -185,9 +203,9 @@ def yolo_loss(raw_maps: Sequence[torch.Tensor], heads,
         pwh = torch.exp(ps[:, 2:4]).clamp(max=1e3) * avec
         giou = bbox_iou(torch.cat([pxy, pwh], -1), torch.cat([txy, twh], -1),
                         xywh=True, giou=True)
-        total_box = total_box + _masked_mean(1.0 - giou, vmask)
+        total_box = total_box + _masked_mean(1.0 - giou, vmask, mesh)
         obj, cls = _obj_and_cls(p, ps, b_idx, a_idx, gj_f, gi_f, vmask,
-                                tcls, giou, hyp, nc)
+                                tcls, giou, hyp, nc, mesh)
         total_obj = total_obj + obj
         total_cls = total_cls + cls
 
@@ -203,7 +221,7 @@ _V5_OFFSETS = ((0.0, 0.0), (0.5, 0.0), (0.0, 0.5), (-0.5, 0.0), (0.0, -0.5))
 
 def yolo_loss_v5(raw_maps: Sequence[torch.Tensor], heads,
                  labels: torch.Tensor, num_labels: torch.Tensor,
-                 img_size: int, hyp: YoloHypV5 = YoloHypV5()
+                 img_size: int, hyp: YoloHypV5 = YoloHypV5(), mesh=None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The v5 loss (ComputeLoss), same inputs as ``yolo_loss``."""
     nc = heads[0].num_classes
@@ -261,14 +279,16 @@ def yolo_loss_v5(raw_maps: Sequence[torch.Tensor], heads,
         pxy = torch.sigmoid(ps[:, 0:2]) * 2.0 - 0.5
         pwh = torch.square(torch.sigmoid(ps[:, 2:4]) * 2.0) * avec
         iou = bbox_iou(torch.cat([pxy, pwh], -1), tbox, xywh=True, ciou=True)
-        total_box = total_box + _masked_mean(1.0 - iou, vmask)
+        total_box = total_box + _masked_mean(1.0 - iou, vmask, mesh)
         obj, cls = _obj_and_cls(p, ps, b_idx, a_idx, gj, gi, vmask, tcls,
-                                iou, hyp, nc)
+                                iou, hyp, nc, mesh)
         total_obj = total_obj + obj * balance[li]
         total_cls = total_cls + cls
 
     lbox = total_box * hyp.box
     lobj = total_obj * hyp.obj
     lcls = total_cls * hyp.cls
+    if mesh is not None:
+        bsz *= mesh.shape["data"]       # the global batch's size
     loss = (lbox + lobj + lcls) * bsz  # loss.py:161 scales by batch size
     return loss, {"box": lbox, "obj": lobj, "cls": lcls, "total": loss}

@@ -515,8 +515,13 @@ def test_left_out_options_raise():
     # TTA is ported (tests/test_torch_detect_cli.py holds it to JAX)
     assert load_detector(d, device="cpu", spec_overrides={"tta": True}
                          ).spec.tta
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        load_detector(d, device="cpu", mesh=object())
+    # the mesh is ported (tests/test_torch_parallel.py holds 2 ranks to
+    # one process); a device that is not the mesh's raises
+    from rtdm_tpu_torch.core.mesh import local_mesh
+    mesh = local_mesh(device="cpu")
+    assert load_detector(d, device="cpu", mesh=mesh).mesh is mesh
+    with pytest.raises(ValueError, match="not the mesh's"):
+        load_detector(d, device="cuda", mesh=mesh)
 
 
 def test_build_engine_cli_builds_a_sealed_detector(jx, darknet, tmp_path):

@@ -138,7 +138,15 @@ def test_build_engine_cli_refuses(tmp_path, argv):
                         str(tmp_path / "x"), "--device", "cpu", *argv])
 
 
-def test_evaluate_cli_refuses_data_parallel(aider_dir):
-    with pytest.raises(SystemExit, match="multi-GPU"):
+def test_evaluate_cli_refuses_data_parallel(aider_dir, monkeypatch):
+    """--data-parallel runs over the launcher's process group: where the
+    launcher asked for two ranks and named no coordinator, it refuses
+    instead of running one rank alone."""
+    for name in ("JAX_COORDINATOR_ADDRESS", "COORDINATOR_ADDRESS",
+                 "NUM_PROCESSES", "PROCESS_ID", "MASTER_ADDR"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(ValueError, match="coordinator"):
         eval_cli.main(["--weights", WEIGHTS, "--data-parallel",
                        "--device", "cpu", *_eval_args(aider_dir)])

@@ -52,7 +52,8 @@ def test_importing_the_port_loads_no_jax():
             "rtdm_tpu_torch.utils.yaml_io, rtdm_tpu_torch.utils.plots, "
             "rtdm_tpu_torch.utils.summary, rtdm_tpu_torch.data.native_io, "
             "rtdm_tpu_torch.cli.create_splits, rtdm_tpu_torch.cli.gen_txts, "
-            "rtdm_tpu_torch.cli.img_verify, rtdm_tpu_torch.cli.log_dataset; "
+            "rtdm_tpu_torch.cli.img_verify, rtdm_tpu_torch.cli.log_dataset, "
+            "rtdm_tpu_torch.core.mesh, rtdm_tpu_torch.parallel; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}]; print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

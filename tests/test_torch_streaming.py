@@ -215,9 +215,10 @@ def test_realtime_inference_options(image_dir, classifier_weights):
     report = main(["--source", image_dir, "--engine", engine_dir,
                    "--max-frames", "3", "--device", "cpu"])
     assert report["frames"] == 3 and len(report["predictions"]) == 3
-    with pytest.raises(SystemExit):
-        main(["--source", image_dir, "--engine", engine_dir,
-              "--data-parallel", "--device", "cpu"])
+    # without a launcher --data-parallel is one rank: the same frames
+    dp = main(["--source", image_dir, "--engine", engine_dir,
+               "--max-frames", "3", "--data-parallel", "--device", "cpu"])
+    assert dp["predictions"] == report["predictions"]
     with pytest.raises(SystemExit):  # neither --engine nor --weights
         main(["--source", image_dir, "--device", "cpu"])
     if not torch.cuda.is_available():

@@ -381,7 +381,11 @@ def test_ema_matches_jax():
                 t.add_(torch.from_numpy(rng.normal(
                     0, 0.1, tuple(t.shape)).astype(np.float32)))
         ema_update(ema, model, step)
-        current = variables_from_torch_state_dict(model.state_dict())
+        # copies: the arrays share the model's memory, which the next
+        # step changes in place while JAX's asynchronous dispatch may
+        # still be reading them
+        current = jax.tree_util.tree_map(
+            np.copy, variables_from_torch_state_dict(model.state_dict()))
         jema = upd(jema, current, jnp.asarray(step, jnp.int32))
     got = flatten_tree(variables_from_torch_state_dict(ema))
     want = flatten_tree(jax.device_get(jema))

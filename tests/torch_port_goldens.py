@@ -657,12 +657,15 @@ def jax_yolo_optimizer(args, is_v5: bool, steps_per_epoch: int,
         optax.masked(inner_rest, rest_mask))
 
 
-def jax_yolo_case(case: str, batch: dict, work: str) -> dict:
-    """YOLO_STEPS steps of the JAX detector train step in one case, built
+def jax_yolo_case(case: str, batch: dict, work: str, steps=YOLO_STEPS,
+                  mesh=None) -> dict:
+    """``steps`` steps of the JAX detector train step in one case, built
     as ``rtdm_tpu/cli/yolo_train.py::train`` builds it (the loss, the
     optimizer chain of the family, the microbatch scan, BN burn-in as the
     family's default, the EMA): per step the loss, its components, the
-    gradients' global norm and the flat variables (and EMA)."""
+    gradients' global norm and the flat variables (and EMA). ``mesh``: the
+    step jitted over it as the JAX CLI's is, the batch sharded over its
+    'data' axis and the state replicated."""
     import jax
     import jax.numpy as jnp
     import optax
@@ -707,7 +710,6 @@ def jax_yolo_case(case: str, batch: dict, work: str) -> dict:
         loss, comps = loss_impl(raw, heads, labels, nlab, YOLO_SIZE, hyp)
         return loss, (mutated["batch_stats"], comps)
 
-    @jax.jit
     def step(params, batch_stats, opt_state, ema, images, labels, nlab,
              rng, step_i):
         mb_i = images.reshape((accumulate, -1) + images.shape[1:])
@@ -740,6 +742,13 @@ def jax_yolo_case(case: str, batch: dict, work: str) -> dict:
         return (params, new_stats, opt_state, ema, loss / accumulate,
                 comps / accumulate, grad_norm)
 
+    if mesh is None:
+        step = jax.jit(step)
+    else:
+        from jax.sharding import NamedSharding, PartitionSpec as P
+        repl, dsh = NamedSharding(mesh, P()), NamedSharding(mesh, P("data"))
+        step = jax.jit(step, in_shardings=(repl,) * 4 + (dsh,) * 3
+                       + (repl,) * 2, out_shardings=repl)
     params = variables["params"]
     batch_stats = variables.get("batch_stats", {})
     opt_state = tx.init(params)
@@ -752,7 +761,7 @@ def jax_yolo_case(case: str, batch: dict, work: str) -> dict:
     out = {"init": flatten_tree(jax.device_get(
         {"params": params, "batch_stats": batch_stats})),
         "loss": [], "comps": [], "grad_norm": [], "vars": [], "ema": []}
-    for it in range(YOLO_STEPS):
+    for it in range(steps):
         params, batch_stats, opt_state, ema, loss, comps, norm = step(
             params, batch_stats, opt_state, ema, images, labels, nlab,
             jax.random.fold_in(rng, it), jnp.asarray(it, jnp.int32))

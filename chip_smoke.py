@@ -185,7 +185,30 @@ non-zero exit, and the result line is printed only at the end:
      against (a)'s, the halo conv against the plain conv, and the
      elastic ladder 2 -> 1 (this process resumes the ranks' checkpoint)
      within rtol 2e-3 of their continuation;
- 13. one JSON line of kernels; then the last line, the result.
+ 13. tooling (models/torch_import.py, the darknet and v5 loaders, the
+     v5 block zoo, the tool CLIs, export/serialize.py with the ACFF block
+     as the registered op rtdm::acff_infer): (a) the three Squeeze_ErNET
+     engines' trees written as the reference's .pt state dict, loaded by
+     load_variables and served by Engines on the card, bit-equal to the
+     .npz engines on the golden frames with 4 ACFF launches a forward;
+     (b) yolov4-tiny-mini .npz -> save_darknet_weights ->
+     load_darknet_weights -> Detector, detections equal to the .npz
+     detector's, and pth_to_weights .npz -> .weights -> .npz; (c)
+     yolov5s-mini through a v5-layout {'model', 'ema'} .pt (EMA
+     preferred), detections equal to the .npz detector's, and an nc=80
+     head refused, then skipped with intersect; (d) every zoo block in one
+     yaml (ZOO_YAML) at width 0.50, 416^2, seeded init, on the card
+     against the CPU port in fp32 with TF32 off (ZOO_TOL); (e)
+     profile_model on yolov5s-mini at 416^2, batch 1 (its table printed);
+     (f) export_model --dynamic-batch of the three Squeeze_ErNET engines,
+     loaded back and run at EXPORT_BATCHES bit-equal to the eager engine,
+     4 ACFF launches a forward through the loaded program, and of the
+     yolov4-tiny detector at 416^2 bit-equal to its eager forward; (g)
+     build_int8_engines on both detector cfgs calibrated on phase 10's
+     synthetic JPEGs, act_scales equal to build_engine's; (h)
+     Engine.__call__ host medians at EXPORT_BATCHES through the op and
+     through the wrapper called directly, in turns; the phase's times;
+ 14. one JSON line of kernels; then the last line, the result.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
 code 2 and no result without CUDA, or when run outside a checkout.
@@ -3467,6 +3490,422 @@ def phase_multi_gpu(card, work, launches):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 13: tooling
+
+# every block of the v5 zoo in one graph, at yolov5s widths (width 0.50,
+# depth 0.33); tests/test_torch_v5_zoo.py runs it at width 0.125 on the CPU
+ZOO_YAML = """
+nc: 2
+depth_multiple: 0.33
+width_multiple: 0.50
+anchors:
+  - [10,13, 16,30, 33,23]
+  - [30,61, 62,45, 59,119]
+backbone:
+  [[-1, 1, Focus, [64, 3]],
+   [-1, 1, Conv, [128, 3, 2]],
+   [-1, 3, BottleneckCSP, [128]],
+   [-1, 1, GhostConv, [256, 3, 2]],
+   [-1, 1, GhostBottleneck, [256, 3, 1]],
+   [-1, 1, MixConv2d, [256, [1, 3], 1]],
+   [-1, 1, CrossConv, [256, 3, 1, 1, 1.0, True]],
+   [-1, 1, DWConv, [256, 3, 1]],
+   [[-1, 4], 1, Sum, [True]],
+   [-1, 1, Contract, [2]],
+   [-1, 1, Expand, [2]],
+   [-1, 1, GhostBottleneck, [512, 3, 2]],
+   [-1, 1, SPP, [512, [5, 9, 13]]],
+   [-1, 3, C3TR, [512, False]],
+  ]
+head:
+  [[-1, 1, Conv, [256, 1, 1]],
+   [-1, 1, nn.Upsample, [None, 2, 'nearest']],
+   [[-1, 8], 1, Concat, [1]],
+   [-1, 3, C3, [256, False]],
+   [[17, 13], 1, Detect, [nc, anchors]],
+  ]
+"""
+ZOO_SIZE = 416
+ZOO_BATCH = 2
+ZOO_TOL = 1e-4          # rtol, and atol of max |map|, as test_torch_detector
+EXPORT_BATCHES = (1, 256)
+HOST_CALLS = 100        # Engine.__call__ samples a turn
+
+
+def reference_classifier_state(variables) -> dict:
+    """The reference classifier's state dict of a JAX-layout tree (the
+    port's names without ``head.``, a ``num_batches_tracked`` a
+    BatchNorm), as its training code saves it."""
+    from rtdm_tpu_torch.models.io import torch_state_dict_from_variables
+    out = {}
+    for key, val in torch_state_dict_from_variables(variables).items():
+        key = key.removeprefix("head.")
+        out[key] = val.float().clone()
+        if key.endswith(".running_var"):
+            out[key[:-len("running_var")] + "num_batches_tracked"] = \
+                torch.tensor(0)
+    return out
+
+
+def v5_reference_state(variables) -> dict:
+    """The ultralytics state dict of a v5 JAX-layout tree: ``m{i}`` ->
+    ``model.{i}``, ``m{i}_{j}`` -> ``model.{i}.{j}``, the Detect convs
+    ``m{i}_m{j}`` -> ``model.{i}.m.{j}``, an inner ``m{j}`` -> ``m.{j}``."""
+    from rtdm_tpu_torch.models.io import torch_state_dict_from_variables
+    out = {}
+    for key, val in torch_state_dict_from_variables(variables).items():
+        top, *rest = key.split(".")
+        head = re.sub(r"^m(\d+)_m(\d+)$", r"model.\1.m.\2", top)
+        head = re.sub(r"^m(\d+)(?:_(\d+))?$",
+                      lambda m: "model." + ".".join(g for g in m.groups()
+                                                    if g), head)
+        rest = [f"m.{p[1:]}" if re.fullmatch(r"m\d+", p) else p
+                for p in rest]
+        out[".".join([head] + rest)] = val.float().clone()
+    return out
+
+
+def _trees_equal(a, b) -> bool:
+    from rtdm_tpu_torch.models.io import flatten_tree
+    fa, fb = flatten_tree(a), flatten_tree(b)
+    return fa.keys() == fb.keys() and all(
+        np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def _host_median(fn, calls=HOST_CALLS) -> float:
+    """Median host-clock ms of ``fn`` (which ends in a device-to-host
+    copy), after 10 warm-up calls."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    ms = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        fn()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return _percentiles(ms)[0]
+
+
+def phase_tooling(card, work, launches):
+    """Phase 13: the tooling slice on the card (see the module docstring).
+    Returns the records; ``launches`` gets each path's ACFF launches."""
+    from rtdm_tpu_torch.cli import (build_engine, build_int8_engines,
+                                    export_model, profile_model,
+                                    pth_to_weights)
+    from rtdm_tpu_torch.core.precision import tf32
+    from rtdm_tpu_torch.data.example_set import write_engine_as_cfg
+    from rtdm_tpu_torch.export.detector import (Detector,
+                                                load_detection_model,
+                                                load_detector)
+    from rtdm_tpu_torch.export.engine import Engine, build_engine as build
+    from rtdm_tpu_torch.export.serialize import load_exported
+    from rtdm_tpu_torch.models.darknet import (Darknet, init_darknet,
+                                               load_darknet_weights,
+                                               save_darknet_weights)
+    from rtdm_tpu_torch.models.io import (flatten_tree, load_variables,
+                                          torch_state_dict_from_variables)
+    from rtdm_tpu_torch.models.yolov5 import (YoloV5,
+                                              load_yolov5_torch_checkpoint)
+    from rtdm_tpu_torch.ops.yolo import decode_all
+    t_phase = time.perf_counter()
+    work = work / "tooling"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rec = {"card": card, "seconds": {}}
+    with np.load(GOLDEN) as g:
+        frames = g["frames_140"]
+    with np.load(GOLDEN_DET) as g:
+        det_frames = g["frames_416"]
+
+    # (a) the classifier .pt path, in each precision
+    t0 = time.perf_counter()
+    sources = {"bf16": "squeeze-ernet_bf16", "fp32": "squeeze-ernet_bf16",
+               "int8": "squeeze-ernet_int8"}
+    for quant, name in sources.items():
+        loaded = Engine.load(str(ENGINES / name))
+        spec = dataclasses.replace(loaded.spec, quant=quant,
+                                   batch_size=len(frames))
+        pt = work / f"{name}.pt"
+        torch.save(reference_classifier_state(loaded.variables), pt)
+        from_pt = load_variables(str(pt))
+        if not _trees_equal(from_pt, loaded.variables):
+            raise AssertionError(f"{pt}: the .pt tree differs from the .npz")
+        want = Engine(spec, loaded.variables, loaded.act_scales)(frames)
+        eng = Engine(spec, from_pt, loaded.act_scales)
+        _count_from_zero()
+        got = eng(frames)
+        _read_launches(f"tooling/.pt {quant} engine", launches,
+                       _only(quant, 4))
+        if not np.array_equal(got, want):
+            raise AssertionError(f".pt {quant} engine: logits differ from "
+                                 f"the .npz engine's by "
+                                 f"{np.abs(got - want).max()}")
+        say(f"tooling .pt: squeeze-ernet {quant} engine from the reference "
+            f"state dict bit-equal to the .npz engine on the 10 golden "
+            f"frames; 4 {quant} ACFF launches a forward")
+    rec["seconds"]["classifier_pt"] = time.perf_counter() - t0
+
+    # (b) darknet .weights: save, load, serve; pth_to_weights both ways
+    t0 = time.perf_counter()
+    v4 = ENGINES / "yolov4-tiny-mini_int8"
+    ref = load_detector(str(v4))
+    x16 = np.resize(det_frames, (ref.batch_size,) + det_frames.shape[1:])
+    want = ref(x16)
+    text = (v4 / "model.txt").read_text()
+    weights = work / "v4.weights"
+    save_darknet_weights(ref._variables, text, str(weights))
+    init = init_darknet(Darknet(text))
+    variables = load_darknet_weights(init, text, str(weights))
+    if not _trees_equal(variables, ref._variables):
+        raise AssertionError("yolov4-tiny .weights round trip differs")
+    det = Detector(ref.model, variables, ref.spec, ref.batch_size,
+                   act_scales=ref.act_scales)
+    _count_from_zero()
+    got = det(x16)
+    _read_launches("tooling/.weights yolov4-tiny detector", launches,
+                   _only("bf16", 0))
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError("the .weights detector's detections differ "
+                             "from the .npz detector's")
+    cfg4, npz4 = write_engine_as_cfg(v4, work)
+    w2, back = work / "cli.weights", work / "cli_back.npz"
+    _quiet(pth_to_weights.main, ["--cfg", cfg4, "--input", npz4,
+                                 "--output", str(w2)])
+    _quiet(pth_to_weights.main, ["--cfg", cfg4, "--input", str(w2),
+                                 "--output", str(back)])
+    if (w2.read_bytes() != weights.read_bytes()
+            or not _trees_equal(load_variables(str(back)), ref._variables)):
+        raise AssertionError("pth_to_weights round trip differs")
+    say(f"tooling .weights: yolov4-tiny-mini .npz -> save_darknet_weights -> "
+        f"load_darknet_weights -> Detector at batch {ref.batch_size}: "
+        f"detections equal to the .npz detector's; pth_to_weights .npz -> "
+        f".weights (byte-equal) -> .npz (equal tree)")
+    rec["seconds"]["darknet_weights"] = time.perf_counter() - t0
+
+    # (c) the v5 .pt: EMA preferred, and intersect from another nc
+    t0 = time.perf_counter()
+    v5 = ENGINES / "yolov5s-mini_int8"
+    ref5 = load_detector(str(v5))
+    want5 = ref5(x16)
+    cfg5, npz5 = write_engine_as_cfg(v5, work)
+    state = v5_reference_state(ref5._variables)
+    pt5 = work / "v5.pt"
+    torch.save({"model": {k: v + 1.0 for k, v in state.items()},
+                "ema": state, "epoch": 3}, pt5)
+    _, init5, _ = load_detection_model(cfg5, None, 416)
+    got_tree = load_yolov5_torch_checkpoint(init5, str(pt5))
+    if not _trees_equal(got_tree, ref5._variables):
+        raise AssertionError("the v5 .pt import (EMA) differs from the .npz")
+    det5 = Detector(ref5.model, got_tree, ref5.spec, ref5.batch_size,
+                    act_scales=ref5.act_scales)
+    got5 = det5(x16)
+    if not all(np.array_equal(a, b) for a, b in zip(got5, want5)):
+        raise AssertionError("the v5 .pt detector's detections differ from "
+                             "the .npz detector's")
+    detect = [k for k in state
+              if re.fullmatch(r"model\.\d+\.m\.\d+\.(weight|bias)", k)]
+    rng = np.random.default_rng(SEED)
+    other_nc = dict(state)
+    for k in detect:               # Detect at nc=80: 3 * 85 output channels
+        shape = (255,) + tuple(state[k].shape[1:])
+        other_nc[k] = torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32))
+    pt80 = work / "v5_nc80.pt"
+    torch.save({"model": other_nc}, pt80)
+    try:
+        load_yolov5_torch_checkpoint(init5, str(pt80))
+        raise AssertionError("a shape-mismatched v5 .pt loaded without "
+                             "intersect")
+    except ValueError:
+        pass
+    partial = flatten_tree(load_yolov5_torch_checkpoint(init5, str(pt80),
+                                                        intersect=True))
+    full, fresh = flatten_tree(ref5._variables), flatten_tree(init5)
+    heads = [k for k in partial if re.match(r"params/m\d+_m\d+/", k)]
+    if not heads or any(
+            not np.array_equal(v, (fresh if k in heads else full)[k])
+            for k, v in partial.items()):
+        raise AssertionError("intersect: the head or the backbone is wrong")
+    say(f"tooling v5 .pt: yolov5s-mini from {{'model', 'ema'}} (EMA "
+        f"preferred) equal to the .npz tree, detections equal to the .npz "
+        f"detector's at batch {ref5.batch_size}; an nc=80 head refused "
+        f"without intersect, with it {len(heads)} head leaves keep the init "
+        f"and {len(partial) - len(heads)} load")
+    rec["seconds"]["v5_pt"] = time.perf_counter() - t0
+
+    # (d) the zoo at yolov5s widths, card against the CPU port, fp32
+    t0 = time.perf_counter()
+    net = YoloV5(ZOO_YAML)
+    init_darknet(net, seed=SEED)
+    net.eval()
+    x = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        0, 1, (ZOO_BATCH, ZOO_SIZE, ZOO_SIZE, 3)).astype(np.float32))
+    with torch.inference_mode():
+        want = net(x)
+        with tf32(False):
+            got = net.cuda()(x.cuda())
+    gaps = []
+    for g, w in zip(got, want):
+        g = g.cpu()
+        gap = ((g - w).abs() - ZOO_TOL * w.abs()).max().item()
+        gaps.append((g - w).abs().max().item() / w.abs().max().item())
+        if gap > ZOO_TOL * w.abs().max().item():
+            raise AssertionError(f"zoo: a map misses rtol {ZOO_TOL} / atol "
+                                 f"{ZOO_TOL} of max |map|")
+    blocks = sorted({e["module"] for e in net.plan})
+    say(f"tooling zoo: {len(net.plan)} layers ({', '.join(blocks)}) at width "
+        f"0.50, {ZOO_SIZE}^2, batch {ZOO_BATCH}: card against the CPU port "
+        f"in fp32, TF32 off, max |d| / max |map| "
+        f"{', '.join(f'{v:.3g}' for v in gaps)} (gate {ZOO_TOL} + rtol)")
+    rec["zoo_max_rel"] = gaps
+    rec["seconds"]["zoo"] = time.perf_counter() - t0
+
+    # (e) profile_model on yolov5s-mini at 416, batch 1
+    t0 = time.perf_counter()
+    rows = profile_model.main(["--cfg", cfg5, "--img-size", "416",
+                               "--batch", "1", "--iters", "10"])
+    rec["profile_total_ms"] = sum(r["dt_ms"] for r in rows)
+    rec["profile_gflops"] = sum(r["flops"] for r in rows) / 1e9
+    say(f"tooling profile_model: yolov5s-mini 416^2 batch 1, {len(rows)} "
+        f"layers, prefix differences sum to {rec['profile_total_ms']:.3f} "
+        f"ms (CUDA events), {rec['profile_gflops']:.3f} GFLOPs [{card}]")
+    rec["seconds"]["profile_model"] = time.perf_counter() - t0
+
+    # (f) export_model: the three engines with --dynamic-batch, and a
+    # detector; each loaded back and held to its eager forward
+    t0 = time.perf_counter()
+    bf16_dir = ENGINES / "squeeze-ernet_bf16"
+    exports = {"bf16": ["--engine", str(bf16_dir)],
+               "int8": ["--engine", str(ENGINES / "squeeze-ernet_int8")],
+               "fp32": ["--model", "squeeze-ernet", "--weights",
+                        str(bf16_dir / "params.npz")]}
+    rec["export"] = {}
+    for quant, flags in exports.items():
+        out = work / f"squeeze-ernet_{quant}.pt2"
+        _quiet(export_model.main, flags + ["--output", str(out),
+                                           "--dynamic-batch"])
+        eager = (build("squeeze-ernet",
+                       load_variables(str(bf16_dir / "params.npz")), "fp32",
+                       batch_size=1, verify=False) if quant == "fp32"
+                 else Engine.load(flags[1]))
+        call = load_exported(str(out))
+        times = {}
+        for b in EXPORT_BATCHES:
+            u8 = torch.as_tensor(np.resize(frames, (b, 140, 140, 3)),
+                                 device="cuda")
+            with torch.no_grad(), tf32(False):
+                want = eager._forward(u8)
+                _count_from_zero()
+                got = call(u8)
+                torch.cuda.synchronize()
+                _read_launches(f"tooling/exported {quant} program batch {b}",
+                               launches, _only(quant, 4))
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"exported {quant} at batch {b}: differs from the "
+                        f"eager engine by {(got - want).abs().max().item()}")
+                times[b] = {"program": cuda_ms(lambda: call(u8), 20),
+                            "eager": cuda_ms(lambda: eager._forward(u8), 20)}
+        rec["export"][quant] = {"bytes": out.stat().st_size, "ms": times}
+        say(f"tooling export: squeeze-ernet {quant} .pt2 "
+            f"({out.stat().st_size} B, dynamic batch) bit-equal to the eager "
+            f"engine at batch {' and '.join(map(str, EXPORT_BATCHES))}, 4 "
+            f"{quant} launches a forward through the loaded program; ms a "
+            f"forward (CUDA events) program / eager: " + ", ".join(
+                f"b{b} {t['program']:.4f} / {t['eager']:.4f}"
+                for b, t in times.items()) + f" [{card}]")
+    out = work / "yolov4-tiny.pt2"
+    _quiet(export_model.main, ["--cfg", cfg4, "--weights", npz4,
+                               "--img-size", "416", "--dynamic-batch",
+                               "--output", str(out)])
+    model4, vars4, heads4 = load_detection_model(cfg4, npz4, 416)
+    model4.load_state_dict(torch_state_dict_from_variables(vars4))
+    model4 = model4.cuda().eval()
+    call = load_exported(str(out))
+    u8 = torch.as_tensor(x16, device="cuda")
+    with torch.no_grad(), tf32(False):
+        got = call(u8)
+        want = decode_all(model4(u8.float() / 255.0), heads4, 416)
+    det_gap = (got - want).abs().max().item()
+    if not torch.equal(got, want):
+        raise AssertionError(f"exported detector differs by {det_gap}")
+    say(f"tooling export: yolov4-tiny-mini fp32 forward + decode_all at "
+        f"416^2 exported with a dynamic batch, at batch {len(x16)} "
+        f"bit-equal to the eager forward")
+    rec["export"]["detector_max_abs"] = det_gap
+    rec["seconds"]["export_model"] = time.perf_counter() - t0
+
+    # (g) build_int8_engines on both detectors, calibrated on phase 10's
+    # synthetic JPEGs, against build_engine on the same inputs
+    t0 = time.perf_counter()
+    calib = work.parent / "synth" / "data" / "images" / "val"
+    wdir = work / "weights"
+    cfgs = [write_engine_as_cfg(ENGINES / n, wdir)[0] for n in DETECTORS]
+    save_darknet_weights(load_variables(str(wdir / f"{DETECTORS[0]}.npz")),
+                         text, str(wdir / f"{DETECTORS[0]}.weights"))
+    built, _ = _quiet(build_int8_engines.main,
+                      ["--cfgs", *cfgs, "--weights-dir", str(wdir),
+                       "--calib-dir", str(calib), "--output",
+                       str(work / "int8")])
+    for cfg, directory in zip(cfgs, built):
+        stem = Path(cfg).stem
+        w = str(wdir / f"{stem}{'.weights' if 'v4' in stem else '.npz'}")
+        single = work / f"single_{stem}"
+        _quiet(build_engine.main,
+               ["--cfg", cfg, "--weights", w, "--quant", "int8",
+                "--calib-dir", str(calib), "--calib-method", "entropy",
+                "--batch-size", "16", "--output", str(single)])
+        with np.load(Path(directory) / "act_scales.npz") as a, \
+                np.load(single / "act_scales.npz") as b:
+            same = sorted(a.files) == sorted(b.files) and all(
+                np.array_equal(a[k], b[k]) for k in a.files)
+            n = len(a.files)
+        if not same:
+            raise AssertionError(f"{stem}: build_int8_engines' act_scales "
+                                 f"differ from build_engine's")
+        say(f"tooling build_int8_engines: {Path(directory).name} from {w} "
+            f"calibrated (entropy) on {len(list(calib.glob('*.jpg')))} "
+            f"synthetic JPEGs; its {n} act_scales equal build_engine's")
+    rec["seconds"]["build_int8_engines"] = time.perf_counter() - t0
+
+    # (h) the op's host cost: Engine.__call__ through rtdm::acff_infer
+    # against the wrapper called directly (the forward before the op), in
+    # turns
+    from rtdm_tpu_torch.models.acff import ACFF
+    from rtdm_tpu_torch.ops.acff import acff_infer
+
+    def direct_forward(self, x):
+        return acff_infer(self.kernel_input(x), *self.packed(),
+                          act_scales=self.act_scales)
+
+    loaded = Engine.load(str(bf16_dir))
+    rec["host_ms"] = {}
+    for b in EXPORT_BATCHES:
+        eng = Engine(dataclasses.replace(loaded.spec, batch_size=b),
+                     loaded.variables)
+        x = np.resize(frames, (b, 140, 140, 3))
+        turns = {"op": [], "direct": []}
+        for turn in ("op", "direct", "direct", "op"):
+            saved = ACFF.forward
+            if turn == "direct":
+                ACFF.forward = direct_forward
+            try:
+                turns[turn].append(_host_median(lambda: eng(x)))
+            finally:
+                ACFF.forward = saved
+        rec["host_ms"][b] = turns
+        say(f"tooling host: squeeze-ernet bf16 Engine.__call__ batch {b}, "
+            f"median of {HOST_CALLS} (host clock), in turns: through "
+            f"rtdm::acff_infer {turns['op'][0]:.4f} / {turns['op'][1]:.4f} "
+            f"ms, the wrapper called directly {turns['direct'][0]:.4f} / "
+            f"{turns['direct'][1]:.4f} ms [{card}]")
+    rec["seconds"]["phase"] = time.perf_counter() - t_phase
+    say("tooling times (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in rec["seconds"].items()))
+    return rec
+
+
 def main() -> int:
     if not (ROOT / "rtdm_tpu_torch").is_dir() or not GOLDEN.exists():
         print("chip_smoke.py runs from the root of a checkout of the "
@@ -3563,6 +4002,10 @@ def main() -> int:
     multi_launches = {}
     multi = phase_multi_gpu(card, work, multi_launches)
 
+    # 13. tooling
+    tooling_launches = {}
+    tooling = phase_tooling(card, work, tooling_launches)
+
     # 13. kernels line: one entry a kernel (the QDQ mode of the bf16 kernel
     # its own), summed over the ACFF blocks of one forward of its main path
     # (the Squeeze_ErNET engine of its precision), launches counted in that
@@ -3607,6 +4050,8 @@ def main() -> int:
                 **{p: n[quant] for p, n in native_launches.items()
                    if n[quant]},
                 **{p: n[quant] for p, n in multi_launches.items()
+                   if n[quant]},
+                **{p: n[quant] for p, n in tooling_launches.items()
                    if n[quant]}},
             "per_shape": [r for r in records if r["quant"] == quant],
         })
@@ -3664,6 +4109,9 @@ def main() -> int:
     say("ACFF launches on phase 11's paths: " + json.dumps(native_launches))
     say("multi-GPU: " + json.dumps(multi, default=float))
     say("ACFF launches on phase 12's paths: " + json.dumps(multi_launches))
+    say("tooling: " + json.dumps(tooling, default=float))
+    say("ACFF launches on phase 13's paths: "
+        + json.dumps(tooling_launches))
     say(f"fault 2: {len(fault2_rows)} shapes x modes held to the plain "
         f"version")
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -52,7 +52,8 @@ def main(argv=None):
     p.add_argument("--image", required=True)
     p.add_argument("--model", default="squeeze-ernet",
                    choices=["ernet", "squeeze-ernet", "squeeze-redconv"])
-    p.add_argument("--weights", help="weights: an .npz variables archive")
+    p.add_argument("--weights", help="weights: an .npz variables archive "
+                   "or the reference's torch .pt/.pth")
     p.add_argument("--engine", help="engine directory (spec.json + params.npz)")
     p.add_argument("--quant", default=None,
                    choices=["fp32", "bf16", "fp16", "int8"],

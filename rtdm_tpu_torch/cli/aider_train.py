@@ -154,15 +154,11 @@ def _set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
 
 
 def _load_pretrained(model, path: str) -> None:
-    """Start ``model`` from the JAX-layout ``.npz`` at ``path`` (its
-    BatchNorm statistics too where it has them)."""
+    """Start ``model`` from the JAX-layout ``.npz`` or the reference's torch
+    ``.pt``/``.pth`` at ``path`` (its BatchNorm statistics too where it has
+    them)."""
     from rtdm_tpu_torch.models.io import (load_variables,
                                           torch_state_dict_from_variables)
-    if path.endswith((".pt", ".pth")):
-        raise NotImplementedError(
-            f"{path}: importing torch .pt checkpoints is not ported yet "
-            "(ROADMAP item 7, models/torch_import.py); convert it to .npz "
-            "with the JAX package")
     state = torch_state_dict_from_variables(load_variables(path))
     missing, unexpected = model.load_state_dict(state, strict=False)
     if unexpected or any(not k.endswith(("running_mean", "running_var"))

@@ -7,7 +7,8 @@ activation calibration on a directory of images (``--calib-dir``, up to
 256 of ``*.jpg``/``*.jpeg``/``*.png`` through the eval transform,
 ``--calib-method`` percentile or entropy); the directory (``spec.json`` +
 ``params.npz`` [+ ``act_scales.npz``]) loads in both packages. Detectors
-(``--cfg`` a darknet .cfg or a v5 .yaml, ``.npz`` weights): ``--img-size``,
+(``--cfg`` a darknet .cfg or a v5 .yaml; ``.npz``, ``.pt`` or ``.weights``
+weights): ``--img-size``,
 ``--num-classes``, ``--conf-thres``, ``--iou-thres``, int8 calibration on
 letterboxed frames, and ``--sealed`` int8 weight codes (``spec.json`` +
 ``model.txt`` + ``params.npz`` [+ ``act_scales.npz``]). Builds (and
@@ -112,7 +113,8 @@ def main(argv=None):
                    help="override the v5 yaml's class count")
     p.add_argument("--conf-thres", type=float, default=0.25)
     p.add_argument("--iou-thres", type=float, default=0.45)
-    p.add_argument("--weights", required=True, help="weights (.npz)")
+    p.add_argument("--weights", required=True,
+                   help="weights (.npz, torch .pt/.pth, darknet .weights)")
     p.add_argument("--quant", default="bf16",
                    choices=["fp32", "bf16", "fp16", "int8"])
     p.add_argument("--batch-size", type=int, default=256,

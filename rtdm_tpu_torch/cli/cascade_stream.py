@@ -122,7 +122,8 @@ def main(argv=None):
     p.add_argument("--height", type=int, default=0)
     p.add_argument("--det-cfg", required=True,
                    help="darknet .cfg or v5 .yaml")
-    p.add_argument("--det-weights", help=".npz weights (else a fresh init)")
+    p.add_argument("--det-weights", help=".npz, .pt or .weights weights "
+                   "(else a fresh init)")
     p.add_argument("--cls-model", default="squeeze-ernet")
     p.add_argument("--cls-weights", required=True)
     p.add_argument("--img-size", type=int, default=416)

@@ -29,7 +29,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description="Evaluate AIDER classifier")
     p.add_argument("--model", default="squeeze-ernet",
                    choices=["ernet", "squeeze-ernet", "squeeze-redconv"])
-    p.add_argument("--weights", help="weights (.npz)")
+    p.add_argument("--weights", help="weights (.npz or torch .pt/.pth)")
     p.add_argument("--engine", help="engine directory")
     p.add_argument("--root-dir", default="data/AIDER")
     p.add_argument("--test-split", default="dataloaders/aider_test.csv")

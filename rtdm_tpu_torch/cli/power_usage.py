@@ -26,7 +26,8 @@ def main(argv=None):
         description="Modelled power/energy report for classifier inference")
     p.add_argument("--model", default="squeeze-ernet",
                    choices=["ernet", "squeeze-ernet", "squeeze-redconv"])
-    p.add_argument("--weights", help="an .npz variables archive")
+    p.add_argument("--weights", help="an .npz variables archive or a "
+                   "torch .pt/.pth")
     p.add_argument("--engine", help="saved engine dir (the --trt path, "
                    "calculate-power-usage.py:223)")
     p.add_argument("--root-dir", default="data/AIDER")

@@ -99,8 +99,8 @@ def main(argv=None):
     p.add_argument("--cfg", help="darknet .cfg or yolov5 .yaml")
     p.add_argument("--engine", help="saved detector engine dir "
                    "(build with build_engine --cfg)")
-    p.add_argument("--weights", help=".npz (.weights and .pt imports are "
-                   "not ported yet)")
+    p.add_argument("--weights", help=".npz, .pt/.pth (v5 or the darknet "
+                   "fork) or darknet .weights")
     p.add_argument("--source", required=True,
                    help="image file | directory | video file | webcam id | "
                         "rtsp:// | .streams list (live sources run the "

@@ -6,8 +6,8 @@ group that ``torchrun`` made (one rank without a launcher: JAX's
 ``local_mesh()``): the batch rounds down to a multiple of the ranks, every
 rank's loader yields the same global batches, the step and the eval give
 each rank its rows, and rank 0 writes the run's files. A darknet ``.cfg``
-or v5 ``.yaml`` model (``export/detector.py::load_detection_model``,
-``.npz`` weights),
+or v5 ``.yaml`` model (``export/detector.py::load_detection_model``:
+``.npz``, ``.pt`` or darknet ``.weights``),
 the training sample of ``data/odder.py`` (mosaic, the affine warp, HSV,
 flip; rect buckets; image weights), the v3 or v5 loss
 (``train/yolo_loss.py``), either optimizer family
@@ -430,17 +430,17 @@ def multi_scale_sizes(img_size: int, gs: int = 32) -> list:
 
 
 def load_model(cfg: str, weights, img_size: int, num_classes, device):
-    """(model on ``device`` with the weights loaded, heads); ``.weights``
-    and ``.pt`` starts raise (ROADMAP item 7)."""
+    """(model on ``device`` with the weights loaded, heads); the weights
+    are ``.npz``, ``.pt``/``.pth`` or darknet ``.weights``
+    (``export/detector.py::load_detection_model``). A v5 start loads
+    shape-tolerantly (``intersect``), so a checkpoint of other classes
+    seeds the backbone."""
     from rtdm_tpu_torch.export.detector import (load_detection_model,
                                                 model_heads)
     from rtdm_tpu_torch.models.io import torch_state_dict_from_variables
-    if weights and not weights.endswith(".npz"):
-        raise NotImplementedError(
-            f"{weights}: the port trains from .npz weights; the .weights "
-            "and .pt imports are ROADMAP item 7 (tooling)")
-    model, variables, _ = load_detection_model(cfg, weights, img_size,
-                                               num_classes)
+    v5 = cfg.endswith((".yaml", ".yml"))
+    model, variables, _ = load_detection_model(
+        cfg, weights, img_size, num_classes, intersect=v5 and bool(weights))
     model.load_state_dict(torch_state_dict_from_variables(variables))
     return model.to(device), tuple(model_heads(model))
 

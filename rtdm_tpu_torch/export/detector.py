@@ -189,27 +189,43 @@ def _new_model(family: str, text: str, num_classes: Optional[int] = None,
 
 
 def load_detection_model(model_path: str, weights: Optional[str],
-                         img_size: int, num_classes: Optional[int] = None):
-    """(model, variables, heads) from a darknet .cfg or a v5 .yaml, with
-    ``.npz`` weights if given (opened at that path and nowhere else), else
-    a fresh init (v5: with the focal-prior Detect biases). ``.weights`` and
-    ``.pt`` imports are not ported yet."""
-    from rtdm_tpu_torch.models.darknet import create_darknet, init_darknet
+                         img_size: int, num_classes: Optional[int] = None,
+                         intersect: bool = False):
+    """(model, variables, heads) from a darknet .cfg or a v5 .yaml: a fresh
+    init (v5: with the focal-prior Detect biases, which a partial load
+    leaves where it skips the head), then the weights if given, opened at
+    that path and nowhere else: ``.npz``; a v5 ``.pt``/``.pth``
+    (``intersect`` skips shape-mismatched tensors); a darknet
+    ``.weights`` or the fork's ``.pt``/``.pth``."""
+    from rtdm_tpu_torch.models.darknet import (create_darknet, init_darknet,
+                                               load_darknet_torch_checkpoint,
+                                               load_darknet_weights)
     from rtdm_tpu_torch.models.yolov5 import (create_yolov5,
-                                              initialize_detect_biases)
-    if weights and not weights.endswith(".npz"):
-        raise NotImplementedError(
-            f"{weights}: only .npz weights load here; .weights and .pt "
-            "imports are not ported yet (ROADMAP queue 1, tooling)")
-    if model_path.endswith((".yaml", ".yml")):
+                                              initialize_detect_biases,
+                                              load_yolov5_torch_checkpoint)
+    v5 = model_path.endswith((".yaml", ".yml"))
+    if v5:
         model = create_yolov5(model_path, num_classes)
         variables = init_darknet(model)
         variables = initialize_detect_biases(model, variables, img_size)
     else:
         model = create_darknet(model_path)
         variables = init_darknet(model)
-    if weights:
+    if not weights:
+        return model, variables, model_heads(model)
+    if weights.endswith(".npz"):
         variables = load_variables(weights)
+    elif weights.endswith((".pt", ".pth")):
+        variables = (load_yolov5_torch_checkpoint(variables, weights,
+                                                  intersect=intersect)
+                     if v5 else load_darknet_torch_checkpoint(
+                         variables, model.cfg_text, weights))
+    elif weights.endswith(".weights") and not v5:
+        variables = load_darknet_weights(variables, model.cfg_text, weights)
+    else:
+        raise ValueError(f"{weights}: {'v5' if v5 else 'darknet'} models "
+                         "load .npz, .pt or .pth"
+                         + ("" if v5 else " or .weights") + " weights")
     return model, variables, model_heads(model)
 
 
@@ -397,7 +413,8 @@ def build_detector(model_path: str, weights: Optional[str] = None,
                    num_classes: Optional[int] = None,
                    calib_images: Optional[np.ndarray] = None,
                    device="cuda") -> Detector:
-    """A detector engine from a cfg/yaml and ``.npz`` weights. For int8,
+    """A detector engine from a cfg/yaml and its weights (any format
+    ``load_detection_model`` reads; None: the seeded init). For int8,
     ``calib_images`` (letterboxed uint8 NHWC) calibrate the activation
     scales with ``spec.calib_method`` on the fp32 model on ``device``."""
     spec = spec or DetectorSpec(cfg_name=os.path.basename(model_path))

@@ -174,17 +174,14 @@ def build_second_stage(model_name: str, weights: Optional[str],
                        quant: str = "bf16",
                        class_map: Optional[Dict[int, int]] = None,
                        device="cuda") -> SecondStageClassifier:
-    """The veto from a classifier name and ``.npz`` weights (opened at that
-    path and nowhere else), its head sized to the checkpoint's classes."""
+    """The veto from a classifier name and ``.npz`` or torch ``.pt``/``.pth``
+    weights (opened at that path and nowhere else), its head sized to the
+    checkpoint's classes."""
     from rtdm_tpu_torch.export.engine import EngineSpec, load_model
     from rtdm_tpu_torch.models.ernet import input_size_for
     from rtdm_tpu_torch.models.io import infer_num_classes, load_variables
     if weights is None:
         raise ValueError("--classifier-weights is required with --classify")
-    if not weights.endswith(".npz"):
-        raise NotImplementedError(
-            f"{weights}: the veto loads .npz weights; .pt checkpoints load "
-            "once models/torch_import.py is ported (ROADMAP queue 1, item 7)")
     variables = load_variables(weights)
     dtype = (torch.bfloat16 if quant in ("bf16", "fp16", "half")
              else torch.float32)

@@ -5,11 +5,15 @@ Counterpart of ``rtdm_tpu/models/acff.py::ACFF``: three parallel depthwise
 exactly 2), channel concat, 1x1 fuse conv, then — in this order —
 LeakyReLU(0.01) BEFORE BatchNorm, then Dropout(rate).
 
-At inference the forward runs the whole block as one fused call,
-``ops.acff.acff_infer``: the hand-written kernel on a CUDA tensor, its plain
-version on a CPU tensor. The kernel's folded fp32 arguments, and fuse_w
-packed for the kernel of the parameters' dtype, are made at the first
-forward and again after any event that may change the parameters:
+At inference the forward runs the whole block as one fused call, the
+registered op ``rtdm::acff_infer`` (``ops/acff.py::acff_infer_op``, which
+``torch.export`` keeps as one node): the hand-written kernel on a CUDA
+tensor, its plain version on a CPU tensor. The kernel's folded fp32
+arguments, and fuse_w packed for the kernel of the parameters' dtype
+(every operand a launch at the input's H x W may read,
+``FuseOperands.for_shape``; none on the CPU), and the op's arguments
+for each input H x W, are made at the first forward and again after
+any event that may change the parameters:
 ``load_state_dict``, a move (``.to``, ``.cuda``), a ``train()``/``eval()``
 switch, or ``clear_packed`` (``clear_packed_arguments`` for a whole
 model; the trainer calls it after every optimizer step and restore).
@@ -31,14 +35,14 @@ unfused block gives its layers. No engine runs that way.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from rtdm_tpu_torch.models.layers import (BatchNorm, Conv, DepthwiseConv,
                                           Dropout, leaky_relu)
-from rtdm_tpu_torch.ops.acff import (FuseOperands, Packed, acff_infer,
+from rtdm_tpu_torch.ops.acff import (FuseOperands, Packed, acff_infer_op,
                                      pack_acff_params)
 from rtdm_tpu_torch.quant.int8 import fake_quant_tensor
 
@@ -53,28 +57,40 @@ class ACFF(nn.Module):
         self.fused_conv = Conv(3 * in_channels, out_channels, kernel_size=1)
         self.batch_norm = BatchNorm(out_channels)
         self.dropout = Dropout(dropout_rate)
+        self.unfused = False
+        self._packed: Optional[Packed] = None
+        # the op's arguments after x, by (H, W, on CUDA)
+        self._op_args: Dict[Tuple[int, int, bool], tuple] = {}
         # (s_x1, s_x2, s_x3, s_f): int8 QDQ of the three depthwise inputs
         # and of the fuse input, or None
         self.act_scales: Optional[Sequence[float]] = None
-        self.unfused = False
-        self._packed: Optional[Packed] = None
+
+    @property
+    def act_scales(self) -> Optional[Sequence[float]]:
+        return self._act_scales
+
+    @act_scales.setter
+    def act_scales(self, scales: Optional[Sequence[float]]) -> None:
+        self._act_scales = scales
+        self._op_args = {}
 
     def _load_from_state_dict(self, *args, **kwargs):
-        self._packed = None
+        self.clear_packed()
         super()._load_from_state_dict(*args, **kwargs)
 
     def _apply(self, fn, *args, **kwargs):
-        self._packed = None
+        self.clear_packed()
         return super()._apply(fn, *args, **kwargs)
 
     def train(self, mode: bool = True):
-        self._packed = None
+        self.clear_packed()
         return super().train(mode)
 
     def clear_packed(self) -> None:
         """Forget the kernel's arguments: the next inference forward packs
         the parameters as they are then."""
         self._packed = None
+        self._op_args = {}
 
     def packed(self) -> Packed:
         """The kernel's arguments for the loaded tensors: the fp32 ones of
@@ -96,8 +112,17 @@ class ACFF(nn.Module):
             return self.dropout(self.forward_layers(x))
         if self.unfused:
             return self.forward_layers(x)
-        return acff_infer(self.kernel_input(x), *self.packed(),
-                          act_scales=self.act_scales)
+        x = self.kernel_input(x)
+        key = (x.shape[1], x.shape[2], x.is_cuda)
+        args = self._op_args.get(key)
+        if args is None:
+            *packed, fuse = self.packed()
+            scales = (None if self.act_scales is None
+                      else [float(s) for s in self.act_scales])
+            operands = (fuse.for_shape(key[0], key[1], scales) if key[2]
+                        else [])
+            args = self._op_args[key] = (*packed, operands, scales)
+        return acff_infer_op(x, *args)
 
     def kernel_input(self, x: torch.Tensor) -> torch.Tensor:
         """x as the fused call takes it: contiguous; and in an int8 block an

@@ -27,8 +27,10 @@ tensor (``models/io.py``):
   sigmoid(w) * 2/n;
 - yolo: the raw map is returned, with ``YoloHead`` metadata for decode.
 
-Loading darknet ``.weights`` and the fork's ``.pt`` checkpoints waits for
-the tooling slice.
+``load_darknet_weights`` and ``save_darknet_weights`` read and write
+darknet ``.weights`` files; ``load_darknet_torch_checkpoint`` reads the
+fork's ``.pt`` checkpoints, ACFF blocks and fusion weights included. All
+three work on JAX-layout trees of numpy arrays, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -320,13 +322,128 @@ def init_darknet(model: nn.Module, seed: int = 0) -> Dict[str, Any]:
     return variables_from_torch_state_dict(model.state_dict())
 
 
-def load_darknet_weights(*args, **kwargs):
-    raise NotImplementedError(
-        "darknet .weights import is not ported yet (ROADMAP queue 1, "
-        "tooling); convert the weights to .npz with the JAX package")
+def load_darknet_weights(variables: Dict[str, Any], cfg_text: str,
+                         weights_path: str) -> Dict[str, Any]:
+    """``variables`` with every conv of the cfg filled from a darknet
+    ``.weights`` file: int32[3] version and int64 images seen, then for
+    each conv in cfg order [bn_bias, bn_scale, bn_mean, bn_var, kernel
+    OIHW] with BN or [bias, kernel OIHW] without. ``[acff]`` blocks are the
+    fork's extension and never appear in such files."""
+    from rtdm_tpu_torch.models.io import numpy_tree
+    defs = parse_darknet_cfg(cfg_text)[1:]
+    with open(weights_path, "rb") as f:
+        np.fromfile(f, dtype=np.int32, count=3)
+        np.fromfile(f, dtype=np.int64, count=1)
+        w = np.fromfile(f, dtype=np.float32)
+    variables = numpy_tree(variables)
+    params = variables["params"]
+    stats = variables.setdefault("batch_stats", {})
+    ptr = 0
+
+    def take(n):
+        nonlocal ptr
+        out = w[ptr:ptr + n]
+        ptr += n
+        return out.copy()
+
+    for i, d in enumerate(defs):
+        if d["type"] != "convolutional":
+            continue
+        kh, kw, cin, cout = params[f"l{i}_conv"]["kernel"].shape
+        if d.get("batch_normalize", 0):
+            bn = params[f"l{i}_bn"]
+            bn["bias"], bn["scale"] = take(cout), take(cout)
+            st = stats.setdefault(f"l{i}_bn", {})
+            st["mean"], st["var"] = take(cout), take(cout)
+        else:
+            params[f"l{i}_conv"]["bias"] = take(cout)
+        oihw = take(cout * cin * kh * kw).reshape(cout, cin, kh, kw)
+        params[f"l{i}_conv"]["kernel"] = np.ascontiguousarray(
+            oihw.transpose(2, 3, 1, 0))
+    if ptr != len(w):
+        raise ValueError(f"weights file size mismatch: used {ptr} of "
+                         f"{len(w)}")
+    return variables
 
 
-def load_darknet_torch_checkpoint(*args, **kwargs):
-    raise NotImplementedError(
-        "the fork's .pt checkpoint import is not ported yet (ROADMAP queue "
-        "1, tooling); convert it to .npz with the JAX package")
+def save_darknet_weights(variables: Dict[str, Any], cfg_text: str,
+                         weights_path: str) -> None:
+    """Write the convs of ``variables`` as a darknet ``.weights`` file
+    (version 0.2.5, 0 images seen), the layout ``load_darknet_weights``
+    reads."""
+    defs = parse_darknet_cfg(cfg_text)[1:]
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    chunks = [np.array([0, 2, 5], np.int32).tobytes(),
+              np.array([0], np.int64).tobytes()]
+    for i, d in enumerate(defs):
+        if d["type"] != "convolutional":
+            continue
+        kernel = np.asarray(params[f"l{i}_conv"]["kernel"], np.float32)
+        if d.get("batch_normalize", 0):
+            bn, st = params[f"l{i}_bn"], stats[f"l{i}_bn"]
+            for arr in (bn["bias"], bn["scale"], st["mean"], st["var"]):
+                chunks.append(np.asarray(arr, np.float32).tobytes())
+        else:
+            chunks.append(np.asarray(params[f"l{i}_conv"]["bias"],
+                                     np.float32).tobytes())
+        chunks.append(np.ascontiguousarray(
+            kernel.transpose(3, 2, 0, 1)).tobytes())
+    with open(weights_path, "wb") as f:
+        f.writelines(chunks)
+
+
+# the fork's ACFF submodules -> the port's names (l{i}_acff_<name>)
+_ACFF_MODULES = {"conv1": "conv1", "conv2": "conv2", "conv3": "conv3",
+                 "fused_conv": "fused", "batch_norm": "bn"}
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"),
+              "running_var": ("batch_stats", "var")}
+
+
+def load_darknet_torch_checkpoint(variables: Dict[str, Any], cfg_text: str,
+                                  path: str) -> Dict[str, Any]:
+    """``variables`` filled from the fork's torch checkpoint (``{'model':
+    state_dict}`` with keys ``module_list.{i}.Conv2d.*``,
+    ``.BatchNorm2d.*``, ``.acff_{i}.<conv1|conv2|conv3|fused_conv|
+    batch_norm>.*`` and a weighted shortcut's ``.w``)."""
+    from rtdm_tpu_torch.models.io import numpy_tree
+    from rtdm_tpu_torch.models.torch_import import load_torch_state_dict
+    sd = load_torch_state_dict(path)
+    if not any(k.startswith("module_list") for k in sd):
+        raise ValueError(f"not a darknet-fork checkpoint: {path}")
+    variables = numpy_tree(variables)
+    trees = {"params": variables["params"],
+             "batch_stats": variables.setdefault("batch_stats", {})}
+
+    def put(name, leaf, val):
+        if leaf in _BN_LEAVES:
+            coll, slot = _BN_LEAVES[leaf]
+            trees[coll].setdefault(name, {})[slot] = val.astype(np.float32)
+
+    for key, val in sd.items():
+        parts = key.split(".")
+        if parts[0] != "module_list" or val.ndim == 0:
+            continue
+        i, sub, leaf = int(parts[1]), parts[2], parts[-1]
+        if sub == "w":
+            trees["params"][f"l{i}_w"] = val.astype(np.float32)
+            continue
+        if sub == "BatchNorm2d":
+            put(f"l{i}_bn", leaf, val)
+            continue
+        if sub == "Conv2d":
+            name = f"l{i}_conv"
+        elif sub.startswith("acff") and parts[3] in _ACFF_MODULES:
+            name = f"l{i}_acff_{_ACFF_MODULES[parts[3]]}"
+            if parts[3] == "batch_norm":
+                put(name, leaf, val)
+                continue
+        else:
+            continue
+        tgt = trees["params"][name]
+        if leaf == "weight":
+            tgt["kernel"] = np.transpose(val, (2, 3, 1, 0)).astype(np.float32)
+        else:
+            tgt["bias"] = val.astype(np.float32)
+    return variables

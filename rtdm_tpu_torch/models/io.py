@@ -1,9 +1,10 @@
 """Weight archives and the mapping between the JAX tree and PyTorch names.
 
-Counterpart of ``rtdm_tpu/models/io.py`` for ``.npz`` archives (flat
-``collection/path/to/leaf`` -> array): ``flatten_tree``, ``unflatten_tree``,
-``save_variables``, ``load_variables`` (with sealed ``<leaf>.q`` int8 codes
-and ``<leaf>.s`` scales dequantized) and ``infer_num_classes``;
+Counterpart of ``rtdm_tpu/models/io.py``: ``.npz`` archives (flat
+``collection/path/to/leaf`` -> array) through ``flatten_tree``,
+``unflatten_tree``, ``save_variables``, ``load_variables`` (with sealed
+``<leaf>.q`` int8 codes and ``<leaf>.s`` scales dequantized; a ``.pt`` or
+``.pth`` goes to ``models/torch_import.py``) and ``infer_num_classes``;
 ``tree_digest`` names a tree's contents.
 
 ``torch_state_dict_from_variables`` carries a variables tree onto the port's
@@ -14,7 +15,8 @@ OIHW (depthwise (3,3,1,C) -> (C,1,3,3)), dense (I,O) -> (O,I), BN
 ``scale``/``bias`` -> ``weight``/``bias``,
 ``batch_stats/.../mean``/``var`` -> ``running_mean``/``running_var``, and
 any other 1-D leaf (a weighted shortcut's ``l{i}_w``, the parametric
-activations' ``p1``, ``p2``, ``beta``) under its own name.
+activations' ``p1``, ``p2``, ``beta``) and a v5 transformer's (in, out)
+matrices (``q_w``, ``in_q_w``, ``linear_w``, ...) under their own names.
 ``variables_from_torch_state_dict`` is its inverse.
 """
 
@@ -47,6 +49,13 @@ def unflatten_tree(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return tree
 
 
+def numpy_tree(tree: Any) -> Any:
+    """A deep copy of a tree with every leaf a numpy array."""
+    if isinstance(tree, dict):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    return np.array(tree)
+
+
 def tree_digest(tree: Any) -> str:
     """sha256 of a tree's leaves (keys, dtypes, shapes and bytes, in key
     order): equal for equal trees, wherever they were made."""
@@ -68,11 +77,12 @@ def save_variables(path: str, variables: Dict[str, Any]) -> str:
 
 
 def load_variables(path: str) -> Dict[str, Any]:
-    """Load classifier variables from an .npz archive."""
-    if not path.endswith(".npz"):
-        raise NotImplementedError(
-            f"{path}: only .npz archives load here; importing torch .pt "
-            "checkpoints is ported in a later slice")
+    """Load classifier variables from a torch ``.pt``/``.pth`` checkpoint
+    (``models/torch_import.py``) or an ``.npz`` archive."""
+    if path.endswith((".pt", ".pth")):
+        from rtdm_tpu_torch.models.torch_import import \
+            load_classifier_checkpoint
+        return load_classifier_checkpoint(path)
     with np.load(path) as archive:
         flat = dict(archive)
     # sealed archives store int8 weight codes + per-channel scales
@@ -113,7 +123,7 @@ def torch_state_dict_from_variables(
             arr, leaf = arr.T, "weight"                       # (I,O) -> (O,I)
         elif leaf == "scale":
             leaf = "weight"                                   # BN gamma
-        elif leaf == "weight" or arr.ndim != 1:
+        elif leaf == "weight" or (arr.ndim != 1 and not leaf.endswith("_w")):
             raise KeyError(f"unmapped parameter {key}")
         out[".".join(path + [leaf])] = torch.from_numpy(
             np.ascontiguousarray(arr))
@@ -144,7 +154,7 @@ def variables_from_torch_state_dict(
             arr, leaf = arr.T, "kernel"
         elif leaf == "weight":
             leaf = "scale"
-        elif arr.ndim != 1:
+        elif arr.ndim != 1 and not leaf.endswith("_w"):
             raise KeyError(f"unmapped tensor {name}")
         params["/".join(path + [leaf])] = np.ascontiguousarray(arr)
     return {"params": unflatten_tree(params),

@@ -8,8 +8,14 @@ an NHWC batch, three 3x3 depthwise convs at dilation 1/2/3 with padding
 BN ``out*scale + shift``; out is (B, H-2, W-2, O) in x's dtype.
 
 On a CUDA tensor it launches ``csrc/acff.cu`` or raises; on a CPU tensor it
-runs ``acff_infer_plain``. Two kernels sit behind the one C entry point,
-both with the fuse product on tensor cores (``wgmma``):
+runs ``acff_infer_plain``. The models call it as the registered op
+``rtdm::acff_infer`` (``acff_infer_op``: its CUDA route this wrapper's
+launches, its CPU route the plain version, a fake for the output's shape),
+which ``torch.export`` keeps as one node; the op takes fuse_w packed for
+every launch a batch may need at the input's H x W
+(``FuseOperands.for_shape``, in ``operand_keys``' order). Two kernels sit
+behind the one C entry point, both with the fuse product on tensor cores
+(``wgmma``):
 
 - fp32 x: 3xTF32 kernel, C a multiple of 4, O in ``WIDTHS``, a
   block's shared memory (``fp32_smem_bytes``) within ``SMEM_LIMIT``
@@ -493,6 +499,29 @@ def acff_decomposed(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
     return out if total == o else out[..., :o].contiguous()
 
 
+@functools.lru_cache(maxsize=256)
+def operand_keys(c: int, o: int, dtype: torch.dtype, h: int, w: int,
+                 act_scales: Optional[Tuple[float, ...]] = None
+                 ) -> Dict[Tuple[int, int, bool], int]:
+    """The fuse_w operands that a launch at input H x W may read, for any
+    batch, each key (o0, width, wide) (``FuseOperands.get``) mapped to its
+    place in the list the ``rtdm::acff_infer`` op takes. The tile plan
+    depends on the batch only through the images packed into a tile (1 up
+    to ``TILE_PIXELS``), and a block's shared memory grows with them, so
+    the plans at batch 1 and ``TILE_PIXELS`` bound every variant."""
+    keys: Dict[Tuple[int, int, bool], int] = {}
+    for b in (1, TILE_PIXELS):
+        plan = tile_plan(b, h, w)
+        if is_direct(dtype, act_scales, c, o, plan):
+            keys.setdefault((0, o, False), len(keys))
+            continue
+        cp = padded_channels(c, dtype)
+        for o0, _, width in o_splits(o):
+            variant = kernel_variant(dtype, act_scales, cp, width, plan)
+            keys.setdefault((o0, width, variant.endswith("_wide")), len(keys))
+    return keys
+
+
 class FuseOperands:
     """fuse_w (3C, O) packed once for every launch that ``acff_infer``
     makes at this block's shape on the kernel of ``dtype``: ``direct``, the
@@ -524,6 +553,16 @@ class FuseOperands:
                     else pack_fuse_operand_tf32)
             self._packed[key] = pack(w)
         return self._packed[key]
+
+    def for_shape(self, h: int, w: int,
+                  act_scales: Optional[Sequence[float]] = None
+                  ) -> List[torch.Tensor]:
+        """Every operand that a launch at input H x W may read, for any
+        batch, in ``operand_keys``' order: the list the ``rtdm::acff_infer``
+        op takes."""
+        keys = operand_keys(self.c, self.o, self.dtype, h, w,
+                            None if act_scales is None else tuple(act_scales))
+        return [self.get(*k) for k in keys]
 
 
 def _check_act_scales(x: torch.Tensor,
@@ -650,25 +689,38 @@ def acff_infer(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
                                 act_scales)
     if x.device.type != "cuda":
         raise ValueError(f"no ACFF kernel for device {x.device}")
+    if not isinstance(fuse_operand, FuseOperands):
+        return _infer_cuda(x, dw_w, dw_b, fuse_w, fuse_b, scale, shift,
+                           act_scales, direct=fuse_operand)
+    c, o = x.shape[-1], fuse_w.shape[-1]
+    if ((fuse_operand.c, fuse_operand.o) != (c, o)
+            or fuse_operand.dtype != x.dtype):
+        raise ValueError(f"fuse_operand holds C={fuse_operand.c} "
+                         f"O={fuse_operand.o} {fuse_operand.dtype}, not "
+                         f"C={c} O={o} {x.dtype}")
+    return _infer_cuda(x, dw_w, dw_b, fuse_w, fuse_b, scale, shift,
+                       act_scales, get=fuse_operand.get)
+
+
+def _infer_cuda(x, dw_w, dw_b, fuse_w, fuse_b, scale, shift, act_scales,
+                get: Optional[Callable[[int, int, bool], torch.Tensor]] = None,
+                direct: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The block's launches on the card: the operand of each from
+    ``get(o0, width, wide)`` (``FuseOperands.get``), or for a block that
+    runs as one launch, ``direct``."""
     _check(x, dw_w, dw_b, fuse_w, fuse_b, scale, shift, act_scales)
     b, h, w, c = x.shape
     o = fuse_w.shape[-1]
     plan = tile_plan(b, h, w)
-    operands = fuse_operand if isinstance(fuse_operand, FuseOperands) \
-        else None
-    if operands is not None and (
-            (operands.c, operands.o) != (c, o) or operands.dtype != x.dtype):
-        raise ValueError(f"fuse_operand holds C={operands.c} O={operands.o} "
-                         f"{operands.dtype}, not C={c} O={o} {x.dtype}")
     if is_direct(x.dtype, act_scales, c, o, plan):
-        operand = operands.direct if operands is not None else fuse_operand
+        operand = get(0, o, False) if get is not None else direct
         _check_operand(x, operand, c, o)
         out = torch.empty((b, h - 2, w - 2, o), dtype=x.dtype,
                           device=x.device)
         _launch(x, dw_w, dw_b, operand, fuse_b, scale, shift, out, 0, o,
                 kernel_variant(x.dtype, act_scales, c, o, plan), act_scales)
         return out
-    if operands is None:
+    if get is None:
         raise ValueError(f"C={c} O={o} H={h} W={w} {x.dtype} runs through "
                          f"acff_decomposed: pass FuseOperands(fuse_w, dtype)")
 
@@ -676,11 +728,48 @@ def acff_infer(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
                o0):
         width = fuse_wp.shape[1]
         quant = kernel_variant(x.dtype, act_scales, xp.shape[-1], width, plan)
-        _launch(xp, dw_wp, dw_bp,
-                operands.get(o0, width, quant.endswith("_wide")), fuse_bp,
-                scale_p, shift_p, out, o0, width, quant, act_scales)
+        _launch(xp, dw_wp, dw_bp, get(o0, width, quant.endswith("_wide")),
+                fuse_bp, scale_p, shift_p, out, o0, width, quant, act_scales)
     return acff_decomposed(x, dw_w, dw_b, fuse_w, fuse_b, scale, shift,
                            launch)
+
+
+@torch.library.custom_op("rtdm::acff_infer", mutates_args=(),
+                         device_types="cpu")
+def acff_infer_op(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
+                  fuse_w: torch.Tensor, fuse_b: torch.Tensor,
+                  scale: torch.Tensor, shift: torch.Tensor,
+                  operands: List[torch.Tensor],
+                  act_scales: Optional[List[float]] = None) -> torch.Tensor:
+    """The fused ACFF block as the registered op ``rtdm::acff_infer``, which
+    ``torch.export`` keeps as one node: on the CPU ``acff_infer_plain``; on
+    CUDA (``_acff_infer_cuda``) the hand-written kernel's launches, which
+    count ``LAUNCHES``, so the replays of an exported program count too.
+    ``operands`` is ``FuseOperands.for_shape``'s packed fuse_w (not read on
+    the CPU)."""
+    _check_act_scales(x, act_scales)
+    return acff_infer_plain(x, dw_w, dw_b, fuse_w, fuse_b, scale, shift,
+                            act_scales)
+
+
+@acff_infer_op.register_kernel("cuda")
+def _acff_infer_cuda(x, dw_w, dw_b, fuse_w, fuse_b, scale, shift, operands,
+                     act_scales=None):
+    index = operand_keys(x.shape[-1], fuse_w.shape[-1], x.dtype, x.shape[1],
+                         x.shape[2],
+                         None if act_scales is None else tuple(act_scales))
+    if len(operands) != len(index):
+        raise ValueError(f"{len(operands)} operands, {len(index)} expected: "
+                         f"pass FuseOperands.for_shape")
+    return _infer_cuda(x, dw_w, dw_b, fuse_w, fuse_b, scale, shift,
+                       act_scales, get=lambda *k: operands[index[k]])
+
+
+@acff_infer_op.register_fake
+def _acff_infer_fake(x, dw_w, dw_b, fuse_w, fuse_b, scale, shift, operands,
+                     act_scales=None):
+    b, h, w, _ = x.shape
+    return x.new_empty((b, h - 2, w - 2, fuse_w.shape[1]))
 
 
 def pack_acff_params(state: Mapping[str, torch.Tensor],

@@ -222,6 +222,40 @@ def test_packed_arguments_are_rebuilt_on_load(jax_ref, rng):
                        ops.pack_fuse_operand(wide_w))
 
 
+def test_op_arguments_are_cached_until_they_may_change(jax_ref, rng):
+    """The block's forward makes the op's arguments once for each input
+    H x W and device, and again after any event that may change them: a
+    new ``act_scales``, a load, a move, ``train()``, ``clear_packed``; a
+    forward after a load reads the loaded parameters."""
+    _, variables, _ = _jax_case(jax_ref, rng, 8, 32, 9)
+    mod = _port_module(variables, 8, 32)
+    x = torch.from_numpy(rng.standard_normal((2, 9, 9, 8), dtype=np.float32))
+    with torch.no_grad():
+        first = mod(x)
+        args = mod._op_args[(9, 9, False)]
+        assert torch.equal(mod(x), first)
+        assert mod._op_args[(9, 9, False)] is args
+        mod(x[:, :7, :7].contiguous())
+        assert set(mod._op_args) == {(9, 9, False), (7, 7, False)}
+        mod.act_scales = (0.05, 0.05, 0.05, 0.1)
+        assert mod._op_args == {}
+        mod.act_scales = None
+        for event in (mod.clear_packed, lambda: mod.to(torch.float32),
+                      lambda: mod.train().eval()):
+            mod(x)
+            event()
+            assert mod._op_args == {}
+        mod(x)
+        state = mod.state_dict()
+        state["batch_norm.running_var"] = state["batch_norm.running_var"] * 4
+        mod.load_state_dict(state)
+        assert mod._op_args == {}
+        fresh = ACFF(8, 32).eval()
+        fresh.load_state_dict(state)
+        assert torch.equal(mod(x), fresh(x))
+        assert not torch.equal(mod(x), first)
+
+
 def test_training_mode_is_not_ported():
     """Training mode is ported since the training slice: the block runs
     its layers with batch statistics (no fused kernel: the reference has
@@ -819,3 +853,93 @@ def test_cuda_qdq_mode_matches_plain():
             fuse_op.data_ptr(), *(a.data_ptr() for a in args[4:]),
             got.data_ptr(), b, hw, hw, c, o, ops.MODES["int8"], o,
             *plan.scalars(), *qs, torch.cuda.current_stream().cuda_stream)
+
+
+# (C, O, H) that acff_decomposed cuts: C padded, O split, the wide-C
+# variant, and a small image whose variant depends on the batch
+DECOMPOSED = [(12, 40, 9), (8, 300, 6), (160, 128, 18), (256, 128, 6),
+              (136, 96, 6)]
+# the models' blocks at their main-path inputs
+WIDTHS_HW = [(8, 64, 69), (16, 64, 33), (64, 96, 15), (96, 128, 6)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,o,hw", DECOMPOSED + WIDTHS_HW)
+def test_for_shape_holds_every_launch_of_any_batch(c, o, hw, dtype):
+    """``FuseOperands.for_shape`` gives the registered op, once for an
+    H x W, every operand that a launch at any batch reads: for each batch
+    1..``TILE_PIXELS`` (the plan's images a tile saturate there; over it
+    the plan is the same), the direct operand, or the key of each launch
+    of the decomposition."""
+    fuse_w = torch.randn(3 * c, o)
+    fuse = ops.FuseOperands(fuse_w, dtype)
+    tensors = fuse.for_shape(hw, hw)
+    keys = ops.operand_keys(c, o, dtype, hw, hw)
+    assert len(tensors) == len(keys)
+    for key, at in keys.items():
+        assert tensors[at] is fuse.get(*key)
+    for b in range(1, ops.TILE_PIXELS + 1):
+        plan = ops.tile_plan(b, hw, hw)
+        if ops.is_direct(dtype, None, c, o, plan):
+            assert (0, o, False) in keys
+            continue
+        for o0, _, width in ops.o_splits(o):
+            variant = ops.kernel_variant(dtype, None, fuse.c_pad, width, plan)
+            assert (o0, width, variant.endswith("_wide")) in keys
+
+
+
+def test_registered_op_is_the_plain_version_on_cpu(rng):
+    """On the CPU ``rtdm::acff_infer`` is ``acff_infer_plain`` (operands
+    not read), in fp32, bf16 and the int8 QDQ mode, and its fake gives the
+    output's shape and dtype; the op refuses bad scales as the wrapper
+    does."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    for dtype, scales in ((torch.float32, None), (torch.bfloat16, None),
+                          (torch.bfloat16, [0.02, 0.02, 0.02, 0.05])):
+        args = _kernel_args(rng, 3, 16, 64, 9, dtype, "cpu")
+        got = torch.ops.rtdm.acff_infer(*args, [], scales)
+        want = ops.acff_infer_plain(*args, act_scales=scales)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        with FakeTensorMode() as mode:
+            fake = torch.ops.rtdm.acff_infer(
+                *(mode.from_tensor(a) for a in args), [], scales)
+        assert fake.shape == (3, 7, 7, 64) and fake.dtype == dtype
+    with pytest.raises(ValueError, match="act_scales"):
+        torch.ops.rtdm.acff_infer(*_kernel_args(rng, 1, 8, 64, 6,
+                                                torch.float32, "cpu"),
+                                  [], [0.1, 0.1, 0.1, 0.1])
+
+
+@pytest.mark.cuda
+def test_cuda_registered_op_equals_kernel_call():
+    """On the card ``rtdm::acff_infer`` is the hand-written kernel: bit for
+    bit the wrapper's direct call with ``FuseOperands``, in fp32, bf16 and
+    both int8 QDQ variants, at the models' shapes and the decomposed ones,
+    counting the same launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(2)
+    for c, o, hw in WIDTHS_HW + DECOMPOSED:
+        for dtype, spread in ((torch.float32, None), (torch.bfloat16, None),
+                              (torch.bfloat16, (1.0, 1.0, 1.0)),
+                              (torch.bfloat16, (1.0, 1.3, 0.7))):
+            for b in (1, 5):
+                args = _kernel_args(rng, b, c, o, hw, dtype, "cuda")
+                qs = (None if spread is None
+                      else list(_qdq_scales(*args[:3], spread)))
+                fuse = ops.FuseOperands(args[3], dtype)
+                tensors = fuse.for_shape(hw, hw, qs)
+                before = dict(ops.LAUNCHES)
+                want = ops.acff_infer(*args, fuse, act_scales=qs)
+                torch.cuda.synchronize()
+                direct = {k: ops.LAUNCHES[k] - n for k, n in before.items()}
+                assert sum(direct.values()) >= 1
+                before = dict(ops.LAUNCHES)
+                got = torch.ops.rtdm.acff_infer(*args, tensors, qs)
+                torch.cuda.synchronize()
+                assert {k: ops.LAUNCHES[k] - n
+                        for k, n in before.items()} == direct
+                assert torch.equal(got, want), (c, o, hw, dtype, spread, b)

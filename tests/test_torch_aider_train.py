@@ -14,7 +14,7 @@ side against the JAX package.
   samples that every branch of the transforms runs (counted).
 - ``parse_args`` takes the JAX CLI's flags into the same config; a
   ``config.json`` written by either package loads in the other; a
-  ``--pretrained`` ``.npz`` starts the model.
+  ``--pretrained`` ``.npz`` or reference ``.pt`` starts the model.
 """
 
 import csv
@@ -141,10 +141,17 @@ def test_cuda_by_default_and_pt_pretrained_raises(aider_dir, tmp_path):
         with pytest.raises(RuntimeError, match="CUDA"):
             aider_train.train_model(_config(aider_dir, tmp_path,
                                             device="cuda"))
-    config = _config(aider_dir, tmp_path, pretrained=True,
-                     weights=str(tmp_path / "w.pt"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        aider_train.train_model(config)
+    from rtdm_tpu_torch.models.io import load_variables
+    from tests.torch_checkpoints import save_classifier_pt
+    engines = __import__("pathlib").Path(__file__).resolve().parents[1] / \
+        "artifacts" / "engines"
+    start = load_variables(str(engines / "squeeze-ernet_bf16" / "params.npz"))
+    config = _config(aider_dir, tmp_path, pretrained=True, epochs=1,
+                     weights=save_classifier_pt(tmp_path / "w.pt", start,
+                                                "state_dict"))
+    state, history = aider_train.train_model(config)
+    assert len(history["train_loss"]) == 1 and state.step == 3
+    assert np.isfinite(history["train_loss"]).all()
 
 
 def test_summary_counts_the_parameters(capsys):

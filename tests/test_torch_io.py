@@ -81,5 +81,13 @@ def test_port_save_roundtrips_through_jax_load(tmp_path):
 
 
 def test_pt_checkpoints_wait_for_a_later_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match=r"\.pt"):
-        load_variables(str(tmp_path / "model.pt"))
+    """The reference's ``.pt`` state dict of a committed engine loads as the
+    JAX package loads it, and as the ``.npz`` it came from (tolerance 0;
+    the layouts in ``tests/test_torch_import.py``)."""
+    from tests.torch_checkpoints import save_classifier_pt
+    variables = load_variables(str(ENGINES / "squeeze-ernet_bf16"
+                                   / "params.npz"))
+    path = save_classifier_pt(tmp_path / "model.pt", variables, "state_dict")
+    got = load_variables(path)
+    _assert_trees_equal(got, jax_load_variables(path))
+    _assert_trees_equal(got, variables)

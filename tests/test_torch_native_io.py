@@ -24,6 +24,7 @@ from rtdm_tpu.data import native_io as jax_io
 
 from rtdm_tpu_torch.data import native_io
 from rtdm_tpu_torch.ops import kernels
+from tests.torch_native_lock import load_both
 from tests.torch_port_goldens import (EXAMPLES, GOLDEN_NATIVE, NATIVE_RECT,
                                       NATIVE_SQUARE, digest)
 
@@ -34,6 +35,14 @@ RANDOM = {"372x350": (372, 350, "RGB", False),
           "416x416": (416, 416, "RGB", False),
           "gray": (300, 500, "L", False),
           "progressive": (480, 360, "RGB", True)}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def both_libraries(tmp_path_factory):
+    """Both packages' native IO loaded before any comparison
+    (``tests/torch_native_lock.py``: the JAX package's first build races
+    between test workers)."""
+    load_both(tmp_path_factory.getbasetemp().parent)
 
 
 def _jpeg(h, w, mode, progressive, seed=0) -> bytes:

@@ -9,7 +9,9 @@ and rect; the training sample (mosaic, the warp, HSV, the flip) and the
 threaded loader's batches from one seed and hyp. Then the paths that take
 PIL in both: ``cache_images``, and every path when the native library is
 unavailable (``native_io._load`` returning None in both packages).
-Tolerance 0 everywhere.
+Tolerance 0 everywhere. Both libraries are loaded first
+(``tests/torch_native_lock.py``): the JAX package's first build races
+between test workers.
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ from rtdm_tpu.data import odder as jodder
 from rtdm_tpu_torch.data import native_io
 from rtdm_tpu_torch.data import odder as todder
 from rtdm_tpu_torch.data.example_set import write_example_set
+from tests.torch_native_lock import load_both
 from tests.torch_port_goldens import (GOLDEN_NATIVE, NATIVE_SCALED,
                                       NATIVE_SQUARE, digest)
 
@@ -30,6 +33,7 @@ HYP = {"degrees": 10.0, "translate": 0.1, "scale": 0.3, "shear": 2.0,
 
 @pytest.fixture(scope="module")
 def jpeg_set(tmp_path_factory):
+    load_both(tmp_path_factory.getbasetemp().parent)
     return write_example_set(tmp_path_factory.mktemp("jpeg"), jpeg=True)
 
 
@@ -61,6 +65,18 @@ def test_set_holds_the_example_jpegs(jpeg_set):
     got, _ = _datasets(jpeg_set)
     assert all(p.endswith(".jpg") for p in got.image_paths)
     assert len(got) == 10 and got.stats["found"] == 10
+
+
+def test_recovers_from_a_lost_build_race(jpeg_set, monkeypatch, tmp_path):
+    """A worker whose first JAX load lost the build race to another
+    worker's ``make clean all`` (``_tried`` set, no library) decodes with
+    PIL; ``load_both`` loads the library again, and the tiles agree."""
+    monkeypatch.setattr(jax_io, "_tried", True)
+    monkeypatch.setattr(jax_io, "_lib", None)
+    assert not jax_io.available()
+    load_both(tmp_path)
+    got, want = _datasets(jpeg_set)
+    _assert_same(got.load_scaled(0, 416), want.load_scaled(0, 416))
 
 
 @pytest.mark.parametrize("size", NATIVE_SCALED)

@@ -32,10 +32,19 @@ from rtdm_tpu.data import native_io as jax_io
 
 from rtdm_tpu_torch.cli import serve as tserve
 from rtdm_tpu_torch.data import native_io
+from tests.torch_native_lock import load_both
 from tests.torch_port_goldens import (EXAMPLES, GOLDEN_NATIVE,
                                       NATIVE_SERVE_ENGINE, NATIVE_SERVE_SIZE)
 
 ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def both_libraries(tmp_path_factory):
+    """Both packages' native IO loaded before any comparison
+    (``tests/torch_native_lock.py``: the JAX package's first build races
+    between test workers)."""
+    load_both(tmp_path_factory.getbasetemp().parent)
 
 
 def _jpeg(h, w, mode="RGB", progressive=False, seed=0) -> bytes:

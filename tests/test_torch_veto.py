@@ -113,9 +113,20 @@ def test_veto_matches_jax(class_map):
                                atol=1e-2 * np.abs(logits).max(), rtol=0)
 
 
-def test_veto_loads_npz_only():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        port.build_second_stage("squeeze-ernet", "w.pt", device="cpu")
+def test_veto_loads_npz_only(tmp_path):
+    """The veto loads the reference's ``.pt`` as it loads the ``.npz`` it
+    was written from (the same classifier weights); no weights raise."""
+    from rtdm_tpu_torch.models.io import load_variables
+    from tests.torch_checkpoints import save_classifier_pt
+    pt = save_classifier_pt(tmp_path / "w.pt", load_variables(VETO_WEIGHTS),
+                            "state_dict")
+    got = port.build_second_stage("squeeze-ernet", pt, device="cpu")
+    want = port.build_second_stage("squeeze-ernet", VETO_WEIGHTS,
+                                   device="cpu")
+    for (k, a), (k2, b) in zip(got.model.state_dict().items(),
+                               want.model.state_dict().items()):
+        assert k == k2
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(ValueError, match="classifier-weights"):
         port.build_second_stage("squeeze-ernet", None, device="cpu")
 

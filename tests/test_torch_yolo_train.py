@@ -265,12 +265,29 @@ def test_device_defaults_to_the_card(tmp_path, example_data):
 
 @pytest.mark.parametrize("start", ["start.pt", "start.weights"])
 def test_pt_and_weights_starts_raise(tmp_path, example_data, start):
+    """A training start from the fork's ``.pt`` or a darknet ``.weights``
+    file, written from the start ``.npz``, gives the model the ``.npz``
+    gives it (the ``.weights`` file holds the convs and BatchNorms; the
+    rest is the same seeded init)."""
     from rtdm_tpu_torch.cli import yolo_train
-    cfg, _ = _model_files(tmp_path, "darknet")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        yolo_train.main(_argv(cfg, str(tmp_path / start), example_data,
-                              tmp_path / "run", "darknet", "--device",
-                              "cpu"))
+    from rtdm_tpu_torch.models.darknet import save_darknet_weights
+    from rtdm_tpu_torch.models.io import load_variables
+    from tests.torch_checkpoints import darknet_fork_state_dict
+    cfg, weights = _model_files(tmp_path, "darknet")
+    variables = load_variables(weights)
+    path = str(tmp_path / start)
+    if start.endswith(".pt"):
+        torch.save({"model": darknet_fork_state_dict(variables,
+                                                     DARKNET_CFG)}, path)
+    else:
+        save_darknet_weights(variables, DARKNET_CFG, path)
+    want, _ = yolo_train.load_model(cfg, weights, 128, None, "cpu")
+    got, heads = yolo_train.load_model(cfg, path, 128, None, "cpu")
+    assert heads[0].num_classes == 2
+    for (k, a), (k2, b) in zip(got.state_dict().items(),
+                               want.state_dict().items()):
+        assert k == k2
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_resume_continues_at_the_next_epoch(tmp_path, example_data):

@@ -208,7 +208,29 @@ non-zero exit, and the result line is printed only at the end:
      synthetic JPEGs, act_scales equal to build_engine's; (h)
      Engine.__call__ host medians at EXPORT_BATCHES through the op and
      through the wrapper called directly, in turns; the phase's times;
- 14. one JSON line of kernels; then the last line, the result.
+ 14. the layout experiments (models/acff.py split_fuse, models/packed.py,
+     quant/int8.py int8_classifier_forward, ops/acff.py
+     fused_classifier_forward), at the committed classifiers' full width,
+     against tests/goldens/torch_port/layout_experiments.npz (the jitted
+     JAX outputs) and the port on the CPU: (a) each classifier with
+     split_fuse in fp32 and bf16, its eval at batch 256 bit-equal to the
+     unsplit model's with 4/4/6 ACFF launches a forward, its layer-by-layer
+     forward (0 launches) against the CPU port's (SPLIT_CPU_TOL) and both
+     against the golden's logits (SPLIT_GOLDEN_TOL); (b) packed_engine_fn
+     of Squeeze_ErNET and ErNET at k = 8 in both layouts, fp32 and bf16,
+     against the golden (PACKED_GOLDEN_TOL) and the CPU port
+     (PACKED_CPU_TOL), 0 ACFF launches, and bf16 at LAYOUT_BATCHES in turns
+     with the bf16 Engine (host-clock and CUDA-event medians of
+     LAYOUT_TIMED calls after LAYOUT_WARM); (c) int8_classifier_forward of
+     the three committed int8 engines against the golden and the CPU port
+     at INT8_BATCHES (INT8_FORWARD_TOL), 0 ACFF launches, the int32
+     products by torch._int_mm with the zero rows its 16-row products
+     needed, and in turns with the int8 Engine at INT8_BATCHES
+     (INT8_TIMED calls); (d)
+     fused_classifier_forward over the bf16 and fp32 engines' models,
+     probabilities bit-equal to the engines' on the golden frames with
+     4/4/6 launches a forward;
+ 15. one JSON line of kernels; then the last line, the result.
 
 It imports nothing of JAX and nothing of the JAX package. It exits with
 code 2 and no result without CUDA, or when run outside a checkout.
@@ -3906,6 +3928,340 @@ def phase_tooling(card, work, launches):
     return rec
 
 
+# 14. the layout experiments
+GOLDEN_LAYOUT = GOLDEN.with_name("layout_experiments.npz")
+LAYOUT_K = 8
+PACKED_MODELS = ("squeeze-ernet", "ernet")
+LAYOUT_TIMED = 100
+LAYOUT_WARM = 5
+INT8_TIMED = 50
+LAYOUT_BATCHES = (256, 8)
+INT8_BATCHES = (1, 256)
+# split fuse: the card's layer-by-layer forward against the CPU port's (of
+# max |logit|) and the card's outputs against the golden's JAX logits
+SPLIT_CPU_TOL = {"fp32": 1e-5, "bf16": 2e-2}
+SPLIT_GOLDEN_TOL = {"fp32": 1e-4, "bf16": 2e-2}
+# packed: absolute on the probabilities; fp32 against the golden at 1e-4
+# (cuDNN sums in another order than XLA:CPU), against the CPU port at the
+# CPU tests' bound (atol, rtol)
+PACKED_GOLDEN_TOL = {"fp32": 1e-4, "bf16": 2e-2}
+PACKED_CPU_TOL = {"fp32": (1e-6, 1e-5), "bf16": (2e-2, 0.0)}
+INT8_FORWARD_TOL = 3e-2     # of max |prob|, the port's int8 gate
+
+
+def _layout_classifier(model, variables, quant, split_fuse, device):
+    """The port's classifier on ``device`` in eval mode with the tree's
+    weights, its parameters cast to the precision's dtype. The split model
+    is ``create_model(model, split_fuse=True)`` given the unsplit model's
+    state dict, whose keys it shares."""
+    from rtdm_tpu_torch.export.engine import EngineSpec, load_model
+    from rtdm_tpu_torch.models import create_model
+    size = 240 if model == "ernet" else 140
+    net = load_model(EngineSpec(model, image_size=size), variables, device,
+                     DTYPES[quant])
+    if not split_fuse:
+        return net
+    split = create_model(model, device=device, image_size=size,
+                         split_fuse=True)
+    split.load_state_dict(net.state_dict(), strict=True, assign=True)
+    return split.eval()
+
+
+def _within(got, want, atol, rtol=0.0):
+    """(max |d|, True when every |d| <= atol + rtol |want|) of two arrays."""
+    d = np.abs(np.asarray(got, np.float64) - want)
+    return float(d.max()), bool(np.all(d <= atol + rtol * np.abs(want)))
+
+
+def _logits_on(net, u8, device, quant):
+    from rtdm_tpu_torch.core.precision import tf32
+    from rtdm_tpu_torch.data.aider import normalize_batch
+    x = normalize_batch(torch.as_tensor(u8).to(device)).to(DTYPES[quant])
+    with torch.inference_mode(), tf32(False):
+        return net(x, apply_softmax=False).float().cpu().numpy()
+
+
+def _in_turns(fns, calls=LAYOUT_TIMED, warm=LAYOUT_WARM):
+    """Host-clock and CUDA-event medians (ms) of each of ``fns`` (each ends
+    in a device-to-host copy), called in turns: one call of each per
+    round, ``warm`` rounds first."""
+    for _ in range(warm):
+        for fn in fns.values():
+            fn()
+    torch.cuda.synchronize()
+    host = {k: [] for k in fns}
+    events = {k: [] for k in fns}
+    for _ in range(calls):
+        for k, fn in fns.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            host[k].append((time.perf_counter() - t0) * 1e3)
+            events[k].append((start, end))
+    torch.cuda.synchronize()
+    return {k: {"host_ms": _percentiles(host[k])[0],
+                "device_ms": _percentiles([s.elapsed_time(e)
+                                           for s, e in events[k]])[0]}
+            for k in fns}
+
+
+def phase_layout_split(card, golden, layout_golden, launches):
+    """(a) split_fuse: the eval at BATCH bit-equal to the unsplit model's
+    with the blocks' launches counted from 0, the layer-by-layer forward
+    on the card against the CPU port's, both against the golden."""
+    from rtdm_tpu_torch.core.precision import tf32
+    from rtdm_tpu_torch.data.aider import normalize_batch
+    from rtdm_tpu_torch.export.engine import Engine
+    from rtdm_tpu_torch.models.acff import layer_by_layer
+    rec = {}
+    for model in MODELS:
+        variables = Engine.load(str(ENGINES / f"{model}_bf16")).variables
+        s = 240 if model == "ernet" else 140
+        gx = golden[f"frames_{s}"]
+        x = np.resize(gx, (BATCH, s, s, 3))
+        for quant in ("fp32", "bf16"):
+            split = _layout_classifier(model, variables, quant, True, "cuda")
+            whole = _layout_classifier(model, variables, quant, False,
+                                       "cuda")
+            n = sum(1 for c, _ in split.named_children()
+                    if c.startswith("acff"))
+            xs = normalize_batch(torch.as_tensor(x).cuda()).to(DTYPES[quant])
+            outs = {}
+            for name, net in (("split", split), ("unsplit", whole)):
+                with torch.inference_mode(), tf32(False):
+                    _count_from_zero()
+                    outs[name] = net(xs, apply_softmax=False)
+                    torch.cuda.synchronize()
+                _read_launches(f"phase14 {model}/{quant} {name} eval",
+                               launches, _only(quant, n))
+            if not torch.equal(outs["split"], outs["unsplit"]):
+                raise AssertionError(f"{model} {quant}: the split eval "
+                                     f"differs from the unsplit one")
+            want = layout_golden[f"split_{model}_{quant}"]
+            eval_g = _logits_on(split, gx, "cuda", quant)
+            _count_from_zero()
+            with layer_by_layer(split):
+                lbl = _logits_on(split, gx, "cuda", quant)
+            _read_launches(f"phase14 {model}/{quant} split layer by layer",
+                           launches, _only(quant, 0))
+            cpu = _layout_classifier(model, variables, quant, True, "cpu")
+            with layer_by_layer(cpu):
+                lbl_cpu = _logits_on(cpu, gx, "cpu", quant)
+            scale = np.abs(want).max()
+            row = {"launches_per_forward": n}
+            for what, got, ref, tol in (
+                    ("lbl_vs_cpu", lbl, lbl_cpu, SPLIT_CPU_TOL[quant]),
+                    ("eval_vs_golden", eval_g, want, SPLIT_GOLDEN_TOL[quant]),
+                    ("lbl_vs_golden", lbl, want, SPLIT_GOLDEN_TOL[quant])):
+                err, ok = _within(got, ref, tol * np.abs(ref).max())
+                row[what] = err / scale
+                if not (ok and np.array_equal(got.argmax(1),
+                                              ref.argmax(1))):
+                    raise AssertionError(
+                        f"split {model} {quant} {what}: max |d| {err:.3e} "
+                        f"over {tol} of max |logit| or argmax differs")
+            rec[f"{model}/{quant}"] = row
+            say(f"split fuse {model} {quant}: eval at batch {BATCH} "
+                f"bit-equal to unsplit, {n} launches a forward; layer by "
+                f"layer card vs CPU {row['lbl_vs_cpu']:.3e}, eval vs "
+                f"golden {row['eval_vs_golden']:.3e}, layer by layer vs "
+                f"golden {row['lbl_vs_golden']:.3e} of max |logit|")
+    return rec
+
+
+def phase_layout_packed(card, golden, layout_golden, launches):
+    """(b) packed: both layouts at k = LAYOUT_K in fp32 and bf16 against
+    the golden and the CPU port, no ACFF launch; then bf16 in turns with
+    the bf16 Engine at LAYOUT_BATCHES."""
+    from rtdm_tpu_torch.export.engine import Engine
+    from rtdm_tpu_torch.models.io import torch_state_dict_from_variables
+    from rtdm_tpu_torch.models.packed import packed_engine_fn, packed_forward
+    rec = {"checks": {}, "timing": {}}
+    for model in PACKED_MODELS:
+        loaded = Engine.load(str(ENGINES / f"{model}_bf16"))
+        state = torch_state_dict_from_variables(loaded.variables)
+        s = loaded.spec.image_size
+        gx = golden[f"frames_{s}"][:LAYOUT_K]
+        fns = {}
+        for quant in ("fp32", "bf16"):
+            for layout in ("grouped", "dense"):
+                fn = packed_engine_fn(state, LAYOUT_K, model, layout,
+                                      DTYPES[quant])
+                _count_from_zero()
+                got = fn(gx).cpu().numpy()
+                _read_launches(f"phase14 packed {model} {layout} {quant}",
+                               launches, _only(quant, 0))
+                cpu = packed_forward(state, torch.from_numpy(gx), LAYOUT_K,
+                                     model, layout, DTYPES[quant]).numpy()
+                want = layout_golden[f"packed_{model}_{layout}_{quant}"]
+                g_err, g_ok = _within(got, want, PACKED_GOLDEN_TOL[quant])
+                c_err, c_ok = _within(got, cpu, *PACKED_CPU_TOL[quant])
+                argmax = (np.array_equal(got.argmax(1), want.argmax(1))
+                          and np.array_equal(got.argmax(1), cpu.argmax(1)))
+                rec["checks"][f"{model}/{layout}/{quant}"] = {
+                    "vs_golden": g_err, "vs_cpu": c_err}
+                say(f"packed {model} {layout} {quant} k={LAYOUT_K}: max "
+                    f"|dprob| vs golden {g_err:.3e} (limit "
+                    f"{PACKED_GOLDEN_TOL[quant]}), vs CPU port {c_err:.3e} "
+                    f"(atol, rtol {PACKED_CPU_TOL[quant]}), argmax equal "
+                    f"{argmax}; 0 ACFF launches")
+                if not (g_ok and c_ok and argmax):
+                    raise AssertionError(f"packed {model} {layout} {quant} "
+                                         f"outside its limits")
+                if quant == "bf16":
+                    fns[layout] = fn
+        for b in LAYOUT_BATCHES:
+            x = np.resize(golden[f"frames_{s}"], (b, s, s, 3))
+            eng = Engine(dataclasses.replace(loaded.spec, batch_size=b),
+                         loaded.variables)
+            turns = _in_turns({
+                "engine_bf16": lambda: eng(x),
+                "packed_grouped": lambda: fns["grouped"](x).cpu(),
+                "packed_dense": lambda: fns["dense"](x).cpu()})
+            rec["timing"][f"{model}/{b}"] = turns
+            say(f"packed timing {model} bf16 batch {b}, in turns, medians "
+                f"of {LAYOUT_TIMED} (host / CUDA events, ms): " + ", ".join(
+                    f"{k} {v['host_ms']:.4f} / {v['device_ms']:.4f}"
+                    for k, v in turns.items()) + f" [{card}]")
+    return rec
+
+
+def phase_layout_int8(card, layout_golden, golden, launches):
+    """(c) the true-int8 forward of each committed int8 engine against the
+    golden and the CPU port at INT8_BATCHES, no ACFF launch; in turns with
+    the int8 Engine at INT8_BATCHES."""
+    from rtdm_tpu_torch.data.aider import normalize_batch
+    from rtdm_tpu_torch.export.engine import Engine
+    from rtdm_tpu_torch.quant.int8 import INT_MM, int8_classifier_forward
+    rec = {"checks": {}, "timing": {}}
+    for model in MODELS:
+        loaded = Engine.load(str(ENGINES / f"{model}_int8"))
+        s = loaded.spec.image_size
+        gx = golden[f"frames_{s}"]
+        fwd = {dev: int8_classifier_forward(_layout_classifier(
+            model, loaded.variables, "fp32", False, dev), loaded.act_scales)
+            for dev in ("cuda", "cpu")}
+
+        def probs(dev, u8):
+            return fwd[dev](normalize_batch(torch.as_tensor(u8).to(dev)))
+        before = dict(INT_MM)
+        _count_from_zero()
+        got = probs("cuda", gx).cpu().numpy()
+        _read_launches(f"phase14 true int8 {model}", launches,
+                       _only("int8", 0))
+        want = layout_golden[f"int8_{model}"]
+        err, ok = _within(got, want, INT8_FORWARD_TOL * np.abs(want).max())
+        if not (ok and np.array_equal(got.argmax(1), want.argmax(1))):
+            raise AssertionError(f"true int8 {model}: max |dprob| {err:.3e} "
+                                 f"vs the golden")
+        row = {"vs_golden": err}
+        for b in INT8_BATCHES:
+            x = np.resize(gx, (b, s, s, 3))
+            mm = dict(INT_MM)
+            card_p = probs("cuda", x).cpu().numpy()
+            padded = INT_MM["padded_calls"] - mm["padded_calls"]
+            rows = INT_MM["rows_added"] - mm["rows_added"]
+            cpu_p = probs("cpu", x).numpy()
+            c_err, c_ok = _within(card_p, cpu_p,
+                                  INT8_FORWARD_TOL * np.abs(cpu_p).max())
+            if not (c_ok and np.array_equal(card_p.argmax(1),
+                                            cpu_p.argmax(1))):
+                raise AssertionError(f"true int8 {model} batch {b}: card vs "
+                                     f"CPU max |dprob| {c_err:.3e}")
+            row[f"vs_cpu_b{b}"] = c_err
+            row[f"padded_products_b{b}"] = padded
+            row[f"rows_added_b{b}"] = rows
+            say(f"true int8 {model} batch {b}: card vs CPU port max "
+                f"|dprob| {c_err:.3e}; int32 products by torch._int_mm, "
+                f"{padded} padded ({rows} zero rows added)")
+        say(f"true int8 {model}: vs golden max |dprob| {err:.3e} (limit "
+            f"{INT8_FORWARD_TOL} of max |prob|); 0 ACFF launches; "
+            f"torch._int_mm calls {INT_MM['calls'] - before['calls']}")
+        rec["checks"][model] = row
+        for b in INT8_BATCHES:
+            x = np.resize(gx, (b, s, s, 3))
+            eng = Engine(dataclasses.replace(loaded.spec, batch_size=b),
+                         loaded.variables, loaded.act_scales)
+            xd = torch.as_tensor(x)
+            turns = _in_turns({
+                "engine_int8": lambda: eng(x),
+                "true_int8": lambda: probs("cuda", xd).cpu()}, INT8_TIMED)
+            rec["timing"][f"{model}/{b}"] = turns
+            say(f"true int8 timing {model} batch {b}, in turns, medians of "
+                f"{INT8_TIMED} (host / CUDA events, ms): " + ", ".join(
+                    f"{k} {v['host_ms']:.4f} / {v['device_ms']:.4f}"
+                    for k, v in turns.items()) + f" [{card}]")
+    return rec
+
+
+def phase_layout_fused(golden, launches):
+    """(d) fused_classifier_forward on the bf16 and fp32 engines' models:
+    probabilities bit-equal to the engine's eval softmax on the golden
+    frames, the blocks' launches a forward."""
+    from rtdm_tpu_torch.data.aider import normalize_batch
+    from rtdm_tpu_torch.export.engine import Engine
+    from rtdm_tpu_torch.ops.acff import fused_classifier_forward
+    rec = {}
+    for model in MODELS:
+        loaded = Engine.load(str(ENGINES / f"{model}_bf16"))
+        gx = golden[f"frames_{loaded.spec.image_size}"]
+        for quant in ("bf16", "fp32"):
+            eng = Engine(dataclasses.replace(loaded.spec, quant=quant,
+                                             batch_size=len(gx)),
+                         loaded.variables)
+            n = sum(1 for c, _ in eng.model.named_children()
+                    if c.startswith("acff"))
+            want = eng.dispatch(gx)
+            fwd = fused_classifier_forward(eng.model)
+            x = normalize_batch(torch.as_tensor(gx).cuda())
+            _count_from_zero()
+            got = fwd(x)
+            torch.cuda.synchronize()
+            _read_launches(f"phase14 fused_classifier_forward {model}/"
+                           f"{quant}", launches, _only(quant, n))
+            if not torch.equal(got, want):
+                raise AssertionError(f"fused_classifier_forward {model} "
+                                     f"{quant} differs from the engine")
+            rec[f"{model}/{quant}"] = {"bit_equal": True,
+                                       "launches_per_forward": n}
+            say(f"fused_classifier_forward {model} {quant}: probabilities "
+                f"bit-equal to the engine's on the {len(gx)} golden frames, "
+                f"{n} {KERNEL_NAME[quant]} launches a forward")
+    return rec
+
+
+def phase_layout(card, launches):
+    """Phase 14: split_fuse, packed inference, the true-int8 forward and
+    fused_classifier_forward on the card (see the module docstring).
+    Returns the records; ``launches`` gets each path's ACFF launches."""
+    t_phase = time.perf_counter()
+    with np.load(GOLDEN) as g:
+        golden = dict(g)
+    with np.load(GOLDEN_LAYOUT) as g:
+        layout_golden = dict(g)
+    rec, seconds = {}, {}
+    for name, run in (
+            ("split", lambda: phase_layout_split(card, golden, layout_golden,
+                                                 launches)),
+            ("packed", lambda: phase_layout_packed(card, golden,
+                                                   layout_golden, launches)),
+            ("true_int8", lambda: phase_layout_int8(card, layout_golden,
+                                                    golden, launches)),
+            ("fused_classifier_forward",
+             lambda: phase_layout_fused(golden, launches))):
+        t0 = time.perf_counter()
+        rec[name] = run()
+        seconds[name] = time.perf_counter() - t0
+    seconds["phase"] = time.perf_counter() - t_phase
+    rec["seconds"] = seconds
+    say("layout experiments (phase 14) times (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in seconds.items()))
+    return rec
+
+
 def main() -> int:
     if not (ROOT / "rtdm_tpu_torch").is_dir() or not GOLDEN.exists():
         print("chip_smoke.py runs from the root of a checkout of the "
@@ -4006,7 +4362,11 @@ def main() -> int:
     tooling_launches = {}
     tooling = phase_tooling(card, work, tooling_launches)
 
-    # 13. kernels line: one entry a kernel (the QDQ mode of the bf16 kernel
+    # 14. the layout experiments
+    layout_launches = {}
+    layout = phase_layout(card, layout_launches)
+
+    # 15. kernels line: one entry a kernel (the QDQ mode of the bf16 kernel
     # its own), summed over the ACFF blocks of one forward of its main path
     # (the Squeeze_ErNET engine of its precision), launches counted in that
     # forward; the bf16 kernel's entry also lists the veto's launches in
@@ -4052,7 +4412,11 @@ def main() -> int:
                 **{p: n[quant] for p, n in multi_launches.items()
                    if n[quant]},
                 **{p: n[quant] for p, n in tooling_launches.items()
-                   if n[quant]}},
+                   if n[quant]},
+                # phase 14: the split and fused forwards launch the kernel
+                # of their precision; packed and true int8 none (0 each)
+                **{p: n[quant] for p, n in layout_launches.items()
+                   if n[quant] or not any(n.values())}},
             "per_shape": [r for r in records if r["quant"] == quant],
         })
         if quant in real:
@@ -4112,6 +4476,8 @@ def main() -> int:
     say("tooling: " + json.dumps(tooling, default=float))
     say("ACFF launches on phase 13's paths: "
         + json.dumps(tooling_launches))
+    say("layout experiments: " + json.dumps(layout, default=float))
+    say("ACFF launches on phase 14's paths: " + json.dumps(layout_launches))
     say(f"fault 2: {len(fault2_rows)} shapes x modes held to the plain "
         f"version")
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -196,13 +196,18 @@ def load_detection_model(model_path: str, weights: Optional[str],
     leaves where it skips the head), then the weights if given, opened at
     that path and nowhere else: ``.npz``; a v5 ``.pt``/``.pth``
     (``intersect`` skips shape-mismatched tensors); a darknet
-    ``.weights`` or the fork's ``.pt``/``.pth``."""
+    ``.weights`` or the fork's ``.pt``/``.pth``. A missing file of a name
+    the reference publishes goes through ``utils/downloads.py::
+    attempt_download`` first (fetched only with ``RTDM_ALLOW_DOWNLOAD=1``;
+    no other directory is searched)."""
     from rtdm_tpu_torch.models.darknet import (create_darknet, init_darknet,
                                                load_darknet_torch_checkpoint,
                                                load_darknet_weights)
     from rtdm_tpu_torch.models.yolov5 import (create_yolov5,
                                               initialize_detect_biases,
                                               load_yolov5_torch_checkpoint)
+    from rtdm_tpu_torch.utils.downloads import attempt_download
+    weights = attempt_download(weights)
     v5 = model_path.endswith((".yaml", ".yml"))
     if v5:
         model = create_yolov5(model_path, num_classes)

@@ -30,6 +30,16 @@ never writes out: inside ``layer_by_layer(model)`` the blocks run their
 submodules one by one (conv1/2/3 -> concat -> fused_conv -> LeakyReLU ->
 batch_norm), so forward pre-hooks on them see what the JAX package's
 unfused block gives its layers. No engine runs that way.
+
+``split_fuse=True`` (JAX ``_SplitFusedConv1x1``) makes ``forward_layers``
+compute the 1x1 fuse as three per-branch 1x1 convs over the slices
+``[i*C:(i+1)*C]`` of ``fused_conv.weight``, summed in the branches' dtype
+(each sum rounded, as the compiled JAX bf16 block rounds it), then the
+bias: no 3C concat is built. The parameters keep their names
+(``fused_conv.weight`` / ``.bias``), so every checkpoint loads unchanged.
+Training and ``layer_by_layer`` take that route; the inference forward
+calls ``rtdm::acff_infer`` whatever the flag says, since the kernel never
+builds the concat either.
 """
 
 from __future__ import annotations
@@ -41,7 +51,7 @@ import torch
 from torch import nn
 
 from rtdm_tpu_torch.models.layers import (BatchNorm, Conv, DepthwiseConv,
-                                          Dropout, leaky_relu)
+                                          Dropout, conv_product, leaky_relu)
 from rtdm_tpu_torch.ops.acff import (FuseOperands, Packed, acff_infer_op,
                                      pack_acff_params)
 from rtdm_tpu_torch.quant.int8 import fake_quant_tensor
@@ -49,8 +59,9 @@ from rtdm_tpu_torch.quant.int8 import fake_quant_tensor
 
 class ACFF(nn.Module):
     def __init__(self, in_channels: int, out_channels: int,
-                 dropout_rate: float = 0.2):
+                 dropout_rate: float = 0.2, split_fuse: bool = False):
         super().__init__()
+        self.split_fuse = split_fuse
         self.conv1 = DepthwiseConv(in_channels, 3, padding=0, dilation=1)
         self.conv2 = DepthwiseConv(in_channels, 3, padding=1, dilation=2)
         self.conv3 = DepthwiseConv(in_channels, 3, padding=2, dilation=3)
@@ -143,8 +154,24 @@ class ACFF(nn.Module):
     def forward_layers(self, x: torch.Tensor) -> torch.Tensor:
         """The block layer by layer, NHWC, in x's dtype (no QDQ); its
         BatchNorm takes batch statistics in training mode."""
-        feat = torch.cat([self.conv1(x), self.conv2(x), self.conv3(x)], -1)
-        return self.batch_norm(leaky_relu(self.fused_conv(feat), 0.01))
+        branches = [self.conv1(x), self.conv2(x), self.conv3(x)]
+        if self.split_fuse:
+            out = self._split_fused_conv(branches)
+        else:
+            out = self.fused_conv(torch.cat(branches, -1))
+        return self.batch_norm(leaky_relu(out, 0.01))
+
+    def _split_fused_conv(self, branches) -> torch.Tensor:
+        """``fused_conv`` over the concat of ``branches``, as the sum of a
+        1x1 conv a branch over its slice of the weight, in the branches'
+        dtype, then the bias."""
+        c = branches[0].shape[-1]
+        weight = self.fused_conv.weight.to(branches[0].dtype)
+        out = None
+        for i, b in enumerate(branches):
+            y = conv_product(b, weight[:, i * c:(i + 1) * c])
+            out = y if out is None else out + y
+        return out + self.fused_conv.bias.to(out.dtype)
 
 
 def clear_packed_arguments(model: nn.Module) -> None:

@@ -88,16 +88,16 @@ class SqueezeErNET(nn.Module):
     UNROUNDED_IN_INT8 = _UNROUNDED
 
     def __init__(self, image_size: int = 140, num_classes: int = NUM_CLASSES,
-                 dropout_rate: float = 0.2):
+                 dropout_rate: float = 0.2, split_fuse: bool = False):
         super().__init__()
         self.image_size, self.num_classes = image_size, num_classes
-        self.dropout_rate = dropout_rate
+        self.dropout_rate, self.split_fuse = dropout_rate, split_fuse
         s = _stem(image_size)
         self.conv1 = Conv(3, 16, 3, stride=2, use_bias=False)
-        self.acff1 = ACFF(16, 64, dropout_rate)
-        self.acff2 = ACFF(64, 96, dropout_rate)
-        self.acff3 = ACFF(96, 128, dropout_rate)
-        self.acff4 = ACFF(128, 256, dropout_rate)
+        self.acff1 = ACFF(16, 64, dropout_rate, split_fuse)
+        self.acff2 = ACFF(64, 96, dropout_rate, split_fuse)
+        self.acff3 = ACFF(96, 128, dropout_rate, split_fuse)
+        self.acff4 = ACFF(128, 256, dropout_rate, split_fuse)
         for _ in range(3):
             s = (s - 2) // 2
         self.head = _ErnetHead(256, s - 2, 1, num_classes)
@@ -116,19 +116,19 @@ class SqueezeRedConv(nn.Module):
     UNROUNDED_IN_INT8 = _UNROUNDED + ("conv_red1", "conv_red3")
 
     def __init__(self, image_size: int = 140, num_classes: int = NUM_CLASSES,
-                 dropout_rate: float = 0.2):
+                 dropout_rate: float = 0.2, split_fuse: bool = False):
         super().__init__()
         self.image_size, self.num_classes = image_size, num_classes
-        self.dropout_rate = dropout_rate
+        self.dropout_rate, self.split_fuse = dropout_rate, split_fuse
         s = _stem(image_size)
         self.conv1 = Conv(3, 16, 3, stride=2, use_bias=False)
         self.conv_red1 = Conv(16, 8, kernel_size=1)
-        self.acff1 = ACFF(8, 64, dropout_rate)
-        self.acff2 = ACFF(64, 96, dropout_rate)
+        self.acff1 = ACFF(8, 64, dropout_rate, split_fuse)
+        self.acff2 = ACFF(64, 96, dropout_rate, split_fuse)
         self.conv_red2 = Conv(96, 48, kernel_size=1)
-        self.acff3 = ACFF(48, 128, dropout_rate)
+        self.acff3 = ACFF(48, 128, dropout_rate, split_fuse)
         self.conv_red3 = Conv(128, 64, kernel_size=1)
-        self.acff4 = ACFF(64, 256, dropout_rate)
+        self.acff4 = ACFF(64, 256, dropout_rate, split_fuse)
         for _ in range(3):
             s = (s - 2) // 2
         self.head = _ErnetHead(256, s - 2, 1, num_classes)
@@ -148,18 +148,18 @@ class ErNET(nn.Module):
     UNROUNDED_IN_INT8 = _UNROUNDED
 
     def __init__(self, image_size: int = 240, num_classes: int = NUM_CLASSES,
-                 dropout_rate: float = 0.2):
+                 dropout_rate: float = 0.2, split_fuse: bool = False):
         super().__init__()
         self.image_size, self.num_classes = image_size, num_classes
-        self.dropout_rate = dropout_rate
+        self.dropout_rate, self.split_fuse = dropout_rate, split_fuse
         s = _stem(image_size)
         self.conv1 = Conv(3, 16, 3, stride=2, use_bias=False)
-        self.acff1 = ACFF(16, 64, dropout_rate)
-        self.acff2 = ACFF(64, 96, dropout_rate)
-        self.acff3 = ACFF(96, 128, dropout_rate)
-        self.acff4 = ACFF(128, 128, dropout_rate)
-        self.acff5 = ACFF(128, 128, dropout_rate)
-        self.acff6 = ACFF(128, 256, dropout_rate)
+        self.acff1 = ACFF(16, 64, dropout_rate, split_fuse)
+        self.acff2 = ACFF(64, 96, dropout_rate, split_fuse)
+        self.acff3 = ACFF(96, 128, dropout_rate, split_fuse)
+        self.acff4 = ACFF(128, 128, dropout_rate, split_fuse)
+        self.acff5 = ACFF(128, 128, dropout_rate, split_fuse)
+        self.acff6 = ACFF(128, 256, dropout_rate, split_fuse)
         for _ in range(3):
             s = (s - 2) // 2
         self.head = _ErnetHead(256, s - 6, 0, num_classes)
@@ -191,7 +191,8 @@ def create_model(name: str, device="cuda",
     weights drawn from flax's He-normal (``layers.init_he_normal``) with
     ``generator`` (a CPU generator; seed 0 when none is given), so that one
     seed gives one start. ``kwargs`` go to the class (``image_size``,
-    ``num_classes``, ``dropout_rate``)."""
+    ``num_classes``, ``dropout_rate``, ``split_fuse``: the ACFF blocks'
+    concat-free fuse, ``models/acff.py``)."""
     key = name.lower()
     if key not in MODEL_REGISTRY:
         raise ValueError(f"unknown model '{name}'; "
@@ -215,6 +216,7 @@ def with_checkpoint_head(model: nn.Module, variables) -> nn.Module:
     if nc and model.num_classes != nc:
         device = next(model.parameters()).device
         model = type(model)(image_size=model.image_size, num_classes=nc,
-                            dropout_rate=model.dropout_rate)
+                            dropout_rate=model.dropout_rate,
+                            split_fuse=model.split_fuse)
         model = model.to(device).eval()
     return model

@@ -98,13 +98,17 @@ class Conv(nn.Module):
         if not (self.round_output or self.bias is not None):
             acc = acc_dtype(x)
             return conv2d(x.to(acc), self.weight.to(acc), *args)
-        if x.dtype == torch.bfloat16 and not x.is_cuda:
-            # torch's fp32 conv sums as XLA:CPU's does where oneDNN's bf16
-            # conv does not
-            y = conv2d(x.float(), self.weight.float(), *args).to(x.dtype)
-        else:
-            y = conv2d(x, self.weight, *args)
+        y = conv_product(x, self.weight, *args)
         return _add_bias(y if self.round_output else y.float(), self.bias)
+
+
+def conv_product(x: torch.Tensor, weight: torch.Tensor, *args) -> torch.Tensor:
+    """``conv2d(x, weight, *args)`` in x's dtype, rounded once; a bf16 one
+    on the CPU as an fp32 conv of the bf16 values (torch's fp32 conv sums
+    as XLA:CPU's does where oneDNN's bf16 conv does not)."""
+    if x.dtype == torch.bfloat16 and not x.is_cuda:
+        return conv2d(x.float(), weight.float(), *args).to(x.dtype)
+    return conv2d(x, weight, *args)
 
 
 class DepthwiseConv(nn.Module):

@@ -67,6 +67,7 @@ import ctypes
 import dataclasses
 import functools
 import math
+from contextlib import nullcontext
 from typing import (Callable, Dict, List, Mapping, Optional, Sequence, Tuple,
                     Union)
 
@@ -792,3 +793,36 @@ def pack_acff_params(state: Mapping[str, torch.Tensor],
         s["batch_norm.running_var"] + eps)
     shift = s["batch_norm.bias"] - s["batch_norm.running_mean"] * scale
     return dw_w, dw_b, fuse_w, fuse_b, scale.contiguous(), shift.contiguous()
+
+
+def fused_classifier_forward(model: torch.nn.Module
+                             ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``forward(x_normalized) -> probs`` (softmax in fp32) over a loaded
+    classifier of the ErNET family in eval mode, every ACFF block through
+    ``rtdm::acff_infer`` (the kernel on the card, the plain version on the
+    CPU; 4 launches a Squeeze_ErNET or Squeeze_RedConv forward, 6 an ErNET
+    one), the other layers as the model's own. x is cast to the model's
+    dtype, as the engines do; an fp32 model runs with TF32 off. The JAX
+    function's ``fused_batch_tile`` and ``interpret`` are Pallas knobs with
+    no counterpart here, and JAX keeps blocks of C < 32 out of its kernel
+    (a Mosaic compile limit) where this kernel takes them. Raises
+    ``TypeError`` for any other model, and at a call in training mode or
+    inside ``models/acff.py::layer_by_layer``."""
+    from rtdm_tpu_torch.core.precision import tf32
+    from rtdm_tpu_torch.models.acff import ACFF
+    from rtdm_tpu_torch.models.ernet import (ErNET, SqueezeErNET,
+                                             SqueezeRedConv)
+    if not isinstance(model, (SqueezeErNET, SqueezeRedConv, ErNET)):
+        raise TypeError(f"unsupported model {type(model)}")
+    blocks = [m for m in model.modules() if isinstance(m, ACFF)]
+    dtype = model.conv1.weight.dtype
+
+    @torch.inference_mode()
+    def forward(x: torch.Tensor) -> torch.Tensor:
+        if model.training or any(b.unfused for b in blocks):
+            raise RuntimeError("fused_classifier_forward runs the model in "
+                               "eval mode with its ACFF blocks fused")
+        # as the Engine: only fp32 takes tf32's process-wide lock
+        with (tf32(False) if dtype == torch.float32 else nullcontext()):
+            return model(x.to(dtype), apply_softmax=True).float()
+    return forward

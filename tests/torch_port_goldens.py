@@ -70,9 +70,21 @@ and rtdm-serve's classify frames at ``NATIVE_SERVE_SIZE`` in full
 JAX server's engine, ``artifacts/engines/squeeze-ernet_bf16``, gives them
 (``serve_probs``, ``serve_class``, ``serve_top``).
 
+And ``tests/goldens/torch_port/layout_experiments.npz``
+(``make_layout_golden``): the jitted JAX outputs of the layout experiments
+on the example frames of ``classifier_logits.npz`` (only outputs; the
+inputs are those frames), each from the committed weights: ``split_<model>_
+<quant>``, the logits of ``create_model(model, split_fuse=True)`` in fp32
+and bf16 on the 10 frames (``jax_split_logits``); ``packed_<model>_<layout>_
+<quant>``, the probabilities of ``packed_forward`` at k = ``LAYOUT_K`` on
+the first ``LAYOUT_K`` frames, Squeeze_ErNET and ErNET, both layouts,
+fp32 and bf16 (``jax_packed_probs``); ``int8_<model>``, the probabilities
+of ``int8_classifier_forward`` of each committed ``*_int8`` engine (its
+params and act_scales) on the 10 frames (``jax_int8_forward_probs``).
+
 Regenerate: JAX_PLATFORMS=cpu python -m tests.torch_port_goldens
-[classifier|detector|cli|cascade|train|yolo_train|native_io] (all without
-an argument)
+[classifier|detector|cli|cascade|train|yolo_train|native_io|layout] (all
+without an argument)
 """
 
 from __future__ import annotations
@@ -85,6 +97,7 @@ import tempfile
 from pathlib import Path
 
 import numpy as np
+import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 GOLDEN = ROOT / "tests" / "goldens" / "torch_port" / "classifier_logits.npz"
@@ -138,6 +151,39 @@ def image_size(model: str) -> int:
 
 def params_path(model: str) -> str:
     return str(ROOT / "artifacts" / "engines" / f"{model}_bf16" / "params.npz")
+
+
+def port_model(model: str, variables, quant: str = "fp32",
+               split_fuse: bool = True, device="cpu"):
+    """The port's classifier on ``device`` in eval mode with the tree's
+    weights, its parameters cast to the precision's dtype. The split model
+    is ``create_model(model, split_fuse=True)`` given the unsplit model's
+    state dict, whose keys it shares."""
+    import torch
+    from rtdm_tpu_torch.export.engine import EngineSpec, load_model
+    from rtdm_tpu_torch.models import create_model
+    dtype = {"fp32": torch.float32, "bf16": torch.bfloat16}[quant]
+    net = load_model(EngineSpec(model, image_size=image_size(model)),
+                     variables, device, dtype)
+    if not split_fuse:
+        return net
+    split = create_model(model, device=device, image_size=image_size(model),
+                         split_fuse=True)
+    split.load_state_dict(net.state_dict(), strict=True, assign=True)
+    return split.eval()
+
+
+@pytest.fixture(autouse=True)
+def two_threads():
+    """2 torch threads a test, for the test modules that import this
+    fixture: under the parallel test workers, torch on every core of each
+    worker slows the float64 and training passes down by two orders of
+    magnitude."""
+    import torch
+    saved = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(saved)
 
 
 def int8_dir(model: str) -> Path:
@@ -385,6 +431,95 @@ def make_int8_golden() -> dict:
     out = {"names": np.array([p.name for p in EXAMPLES])}
     for model in MODELS:
         out[model] = jax_int8_logits(model, example_frames(image_size(model)))
+    return out
+
+
+GOLDEN_LAYOUT = GOLDEN.with_name("layout_experiments.npz")
+LAYOUT_K = 8
+PACKED_MODELS = ("squeeze-ernet", "ernet")
+LAYOUTS = ("grouped", "dense")
+LAYOUT_QUANTS = ("fp32", "bf16")
+
+
+def _jax_dtype(quant: str):
+    import jax.numpy as jnp
+    return {"fp32": jnp.float32, "bf16": jnp.bfloat16}[quant]
+
+
+def jax_split_logits(model: str, quant: str, variables,
+                     frames: np.ndarray) -> np.ndarray:
+    """Logits of the jitted JAX ``create_model(model, split_fuse=True)`` in
+    eval mode, its params cast to ``quant`` (batch statistics fp32, as the
+    JAX engine casts them), on uint8 ``frames``."""
+    import jax
+    import jax.numpy as jnp
+    from rtdm_tpu.core.precision import _cast_floating
+    from rtdm_tpu.data.aider import normalize_batch
+    from rtdm_tpu.models import create_model
+    net, dtype = create_model(model, split_fuse=True), _jax_dtype(quant)
+    fn = jax.jit(lambda v, u8: net.apply(
+        v, normalize_batch(u8).astype(dtype), train=False,
+        apply_softmax=False).astype(jnp.float32))
+    cast = {"params": _cast_floating(variables["params"], dtype),
+            "batch_stats": variables["batch_stats"]}
+    return np.asarray(fn(cast, jnp.asarray(frames)))
+
+
+def jax_packed_probs(model: str, k: int, layout: str, quant: str, variables,
+                     frames: np.ndarray) -> np.ndarray:
+    """Probabilities of the jitted JAX ``packed_forward`` (the variables an
+    argument) on uint8 ``frames``."""
+    import jax
+    import jax.numpy as jnp
+    from rtdm_tpu.models.packed import packed_forward
+    fn = jax.jit(packed_forward, static_argnames=(
+        "k", "model", "layout", "compute_dtype"))
+    return np.asarray(fn(variables, jnp.asarray(frames), k=k, model=model,
+                         layout=layout, compute_dtype=_jax_dtype(quant)))
+
+
+def int8_engine_tree(model: str):
+    """(variables, act_scales) of the committed ``int8_dir(model)``."""
+    from rtdm_tpu.models.io import load_variables
+    with np.load(int8_dir(model) / "act_scales.npz") as archive:
+        scales = dict(archive)
+    return load_variables(str(int8_dir(model) / "params.npz")), scales
+
+
+def jax_int8_forward(model: str):
+    """The jitted JAX ``int8_classifier_forward`` of the committed int8
+    engine of ``model``: uint8 frames -> probabilities."""
+    import jax
+    from rtdm_tpu.data.aider import normalize_batch
+    from rtdm_tpu.models import create_model
+    from rtdm_tpu.quant.int8 import int8_classifier_forward
+    fwd = int8_classifier_forward(create_model(model),
+                                  *int8_engine_tree(model))
+    return jax.jit(lambda u8: fwd(normalize_batch(u8)))
+
+
+def jax_int8_forward_probs(model: str, frames: np.ndarray) -> np.ndarray:
+    import jax.numpy as jnp
+    return np.asarray(jax_int8_forward(model)(jnp.asarray(frames)))
+
+
+def make_layout_golden() -> dict:
+    from rtdm_tpu.models.io import load_variables
+    with np.load(GOLDEN) as g:
+        frames = {s: g[f"frames_{s}"] for s in (140, 240)}
+    out = {"names": np.array([p.name for p in EXAMPLES])}
+    for model in MODELS:
+        variables = load_variables(params_path(model))
+        x = frames[image_size(model)]
+        for quant in LAYOUT_QUANTS:
+            out[f"split_{model}_{quant}"] = jax_split_logits(
+                model, quant, variables, x)
+            if model in PACKED_MODELS:
+                for layout in LAYOUTS:
+                    out[f"packed_{model}_{layout}_{quant}"] = \
+                        jax_packed_probs(model, LAYOUT_K, layout, quant,
+                                         variables, x[:LAYOUT_K])
+        out[f"int8_{model}"] = jax_int8_forward_probs(model, x)
     return out
 
 
@@ -877,7 +1012,8 @@ def make_yolo_train_golden(cases=tuple(YOLO_CASES)) -> dict:
 def main() -> None:
     import sys
     which = sys.argv[1:] or ["classifier", "detector", "cli", "cascade",
-                             "train", "yolo_train", "native_io"]
+                             "train", "yolo_train", "native_io",
+                             "layout"]
     os.environ["RTDM_XLA_CACHE"] = "0"   # no persistent compile cache
     GOLDEN.parent.mkdir(parents=True, exist_ok=True)
     if "classifier" in which:
@@ -902,6 +1038,9 @@ def main() -> None:
     if "native_io" in which:
         np.savez_compressed(GOLDEN_NATIVE, **make_native_golden())
         print(f"wrote {GOLDEN_NATIVE}")
+    if "layout" in which:
+        np.savez_compressed(GOLDEN_LAYOUT, **make_layout_golden())
+        print(f"wrote {GOLDEN_LAYOUT}")
 
 
 if __name__ == "__main__":

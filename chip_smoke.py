@@ -33,9 +33,10 @@ non-zero exit, and the result line is printed only at the end:
      (FAULT2_SHAPES: C 3, 12, 150, 300; O 1, 32, 100, 320; H = W 3 and
      300; 65537 images), each mode, through acff_decomposed and the wide-C
      variant with the launches they must make, against the plain version;
-     and the wide-C variant (all three modes) timed at C = 160 and 256 (O
-     = 128, batch 256, 8x8 tiles) with its shared memory, registers and
-     share of its bound;
+     and the wide-C variant (all three modes) checked and timed at
+     WIDE_SHAPES: (C, O) = (160, 128), (256, 128), (192, 256) and (384,
+     128) at 18x18, batch 256, with its shared memory (against the
+     wrapper's count), blocks per SM, registers and share of its bound;
   4. end to end: the engines of artifacts/engines/ (bf16, fp32 from the
      same weights, int8) on the 10 example JPEGs, held against the port on
      the CPU and against the committed JAX goldens
@@ -295,8 +296,10 @@ FAULT2_SHAPES = ([(2, c, o, 3) for c in FAULT2_CHANNELS
                  + [(1, c, o, 300) for c, o in zip(FAULT2_CHANNELS,
                                                    FAULT2_OUTPUTS)]
                  + [(65537, 1, 32, 3)])
-# the wide-C variant timed at batch 256 on 8x8 tiles (16x16 outputs)
-WIDE_SHAPES = ((160, 128, 18), (256, 128, 18))
+# the wide-C variant timed at batch 256 (16x16 outputs): the two shapes
+# of its first design, the O = 256 block, C past one TMA box row
+WIDE_SHAPES = ((160, 128, 18), (256, 128, 18), (192, 256, 18),
+               (384, 128, 18))
 # detection CLIs (phase 7): the veto classifier, the labelled set's batch,
 # the frames timed at batch 1 (the 10 examples repeated) and the warm-up
 # frames left out of the timing
@@ -548,9 +551,11 @@ def footprint(quant, b, c, o, h, w):
     from rtdm_tpu_torch.ops import kernels
     from rtdm_tpu_torch.ops.acff import (MODES, bf16_smem_bytes,
                                          bf16_wide_smem_bytes,
-                                         fp32_smem_bytes, tile_plan)
+                                         fp32_smem_bytes, tile_plan,
+                                         wide_tile_plan)
     lib = ctypes.CDLL(str(kernels.library_path("acff")))
-    pl = tile_plan(b, h, w)
+    pl = (wide_tile_plan(b, h, w, o) if quant.endswith("_wide")
+          else tile_plan(b, h, w))
     smem, per_sm, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     out = [ctypes.byref(smem), ctypes.byref(per_sm), ctypes.byref(regs)]
     if quant == "fp32":
@@ -593,15 +598,24 @@ def int8_limit(qs, args, want):
     bf16 neighbour and so QDQ to the next code (1 in 10^4 to 10^7
     features), which moves the fuse product by up to s_f * max |fuse_w| and
     an output by up to s_f * max |fuse_w * scale|, whatever the output's
-    own size; then the pre-BN value v, rounded to bf16 twice (the product,
-    the bias sum), can land a step of 2^-7 |v| further each, which is
-    2^-7 |out - shift| in the output, and the output a step of 2^-7 |out|.
-    args are ``acff_infer_plain``'s (x, dw_w, dw_b, fuse_w, fuse_b, scale,
+    own size; then the fuse product p, summed in another order, can round
+    to bf16 a step of 2^-7 |p| further, which is 2^-7 |p * scale| in the
+    output (more than 2^-7 |out - shift| where the bias cancels much of p:
+    at C = 384 a product with |p| in [4, 8) rounds one bf16 step, 0.03125,
+    from the plain version's), the bias sum v a step of 2^-7 |v|, which
+    is 2^-7 |out - shift|, and the output a step of 2^-7 |out|. args are
+    ``acff_infer_plain``'s (x, dw_w, dw_b, fuse_w, fuse_b, scale,
     shift)."""
+    import torch.nn.functional as F
+    from rtdm_tpu_torch.ops.acff import depthwise_features
     one_code = qs[3] * (args[3] * args[5]).abs().max().item()
+    feat = depthwise_features(*args[:3], act_scales=qs)
+    w = args[3].to(torch.bfloat16).float()
+    p = F.conv2d(feat, w.t()[:, :, None, None]).permute(0, 2, 3, 1)
     want = want.float()
-    return one_code + 2.0 ** -7 * (want.abs() + 2 * (want - args[6]).abs()), \
-        one_code
+    v = (want - args[6]).abs()
+    return one_code + 2.0 ** -7 * (want.abs() + 2 * v) + 2.0 ** -7 * (
+        (p * args[5]).abs() - v).clamp(min=0), one_code
 
 
 def hold_to_plain(args, fuse_op, qs, quant, label, expect=None):

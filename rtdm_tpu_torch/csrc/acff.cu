@@ -818,43 +818,232 @@ acff_bf16_kernel(const __grid_constant__ CUtensorMap xmap,
 }
 
 // ---------------------------------------------------- bf16 wide-C variant
-// Where a whole bf16 box, A and B do not fit one block's 227 KB (C > 144 at
-// O <= 128 on an 8x8 tile, C > 120 at O = 256) or the box is wider than a
-// TMA box row takes (C > 256), acff_bf16_wide_kernel takes the input
-// channels in chunks of WKC, as the fp32 kernel does: per chunk a 4-D TMA
-// box of WKC channels (double-buffered across chunks and tiles; zero fill
-// is the padding and the channels past C), the chunk's depthwise weights
-// (double-buffered: fetched into registers before a chunk's product, put
-// after it), its 3*WKC features into A with the bf16 kernel's depthwise
-// (dw_rows, dw_pixel with C = WKC), and the chunk's 3*WKC rows of B
-// (ops/acff.py::pack_fuse_operand_wide, chunk order; two stages) into the
-// fp32 accumulators, which carry across the chunks; the epilogue follows
-// the last chunk and stores from the accumulators. Both QDQ variants are
-// kept (QSHARED rewrites each chunk's box in place once it lands). Its sum
-// runs over K in chunk order, so it is held to the bf16 kernel's gates
-// against the plain version. No model of the repository reaches it; it
-// exists so that every shape the reference kernel takes runs.
-constexpr int WKC = 32;
+// acff_bf16_wide_kernel<NH, QM> replaces rtdm_tpu/ops/acff_pallas.py::
+// _acff_kernel at the bf16 shapes past acff_bf16_kernel: a whole bf16 box,
+// A and B over one block's 227 KB (C > 144 at O <= 128 on an 8x8 tile, C >
+// 120 at O = 256), or C past a TMA box row (C > 256). It takes the input
+// channels in chunks of WKC = 32 (per chunk a 4-D TMA box of 32 channels,
+// zero fill the padding and the channels past C; the chunk's 3*32 features;
+// its 96 rows of B, ops/acff.py::pack_fuse_operand_wide), and sums the fuse
+// product over the chunks in order into fp32 accumulators.
+//
+// What bounds it on an H100: at C = 160 / 256, O = 128, 18^2, batch 256 it
+// moves 43 / 59 MB (0.0130 / 0.0178 ms at 3.35 TB/s), and its fuse product
+// (8.1 / 12.9 GFLOP on the bf16 tensor cores) and depthwise (283 / 453 M
+// fp32 FMAs) take about as long: only a kernel that overlaps all three
+// comes near the bound. Its first design (one 64-pixel tile a block, every
+// chunk's box wait, depthwise into one A, product and wait in turn by all
+// 256 threads, two blocks an SM) ran at 14-15% of it, 0.0865 / 0.1264 ms:
+// its depthwise, in turn with the rest, was the largest phase (removing
+// it saved 45-51%; B read again for every tile, 5%;
+// scripts/acff_phase_times.py). This design takes 0.0600 / 0.0861 ms
+// there (21.6% / 20.6% of the bound; int8 0.0881 / 0.1332, per branch
+// 0.1397 / 0.2135; chip_smoke.py, NVIDIA H100 80GB HBM3 at 700 W), 1.54x
+// / 1.51x the first in turns on one card; its depthwise's shared-memory
+// box loads now bind it.
+//
+// The design (PERF.md has the designs measured on the way):
+// - a block owns M = 128 output pixels at O <= 128 (a 16x8 tile, box 22 x
+//   15) or M = 64 at O = 256 (8x8, box 14 x 15), or whole small images
+//   packed into its M rows (ops/acff.py::wide_tile_plan). At O <= 128 each
+//   B chunk feeds two m64nO products (one a warpgroup), so B's L2 traffic
+//   halves; at O = 256 the two warpgroups take 128 columns each of one m64
+//   tile. The box is one column wider than the halo needs, so that its
+//   rows alternate bank halves.
+// - warp specialisation: two MMA warpgroups (64 fp32 accumulators a
+//   thread) and depthwise warps, 384 to 640 threads. The depthwise warps
+//   wait for a box (full mbarrier), QDQ it in place (QSHARED), compute the
+//   chunk's 96 features into one of two A buffers (the MMA side frees a
+//   buffer on an empty mbarrier), arrive on its full mbarrier, and issue
+//   the TMA box two chunks ahead (a ring of three). In bf16 at O <= 128
+//   twelve warps take one branch of four tile rows each, a lane 8 pixels
+//   x 4 channels; elsewhere a warp takes all three branches of two rows, a
+//   lane 4 pixels (the QDQ modes' per-load work wants the registers that
+//   640 threads leave too few of). A half warp pairs neighbouring rows, so
+//   that its 8-byte box loads and A stores fall on 32 distinct banks. The
+//   chunk's depthwise weights are fetched into registers one chunk ahead
+//   and put into a second buffer.
+// - the MMA warpgroups issue chunk c's wgmmas, commit, and wait with
+//   wait_group 1, so chunk c's product runs while chunk c + 1's features
+//   are computed; the chunk c - 1 they then free gives its B stage the B
+//   chunk two on (cp.async.bulk). The epilogue (bias, LeakyReLU, BN from
+//   fuse_b, scale and shift kept in shared memory) stages the output tile
+//   in shared memory and stores it in 16-byte pieces, while the depthwise
+//   warps go on into the next tile. The role branch is on a value
+//   broadcast by __shfl_sync: on threadIdx itself ptxas serialized every
+//   wgmma (C7518), which cost the overlap.
+// - numerics as before: each feature summed in fp32 from zero (bf16: from
+//   its bias) and rounded once; K summed in chunk order in fp32; QSHARED
+//   QDQs each box element once in place, QBRANCH at each load with its
+//   branch's scale; the epilogue rounds as epilogue<QM>.
+constexpr int WKC = 32;          // input channels a chunk
+constexpr int WK = 3 * WKC;      // fuse rows (features) a chunk
+constexpr int WKP8 = WK / 8;     // A's core matrices a row group, in K
+constexpr int W_SBO = WKP8 * A_LBO;   // bytes between A's row groups
+constexpr int WNW = 30 * WKC;    // depthwise weights and biases a chunk
+constexpr int WMMA = 256;        // two MMA warpgroups
+constexpr int WTW = 8;           // columns of a spatial tile
+constexpr int WHX = WTW + 7;     // columns of its box: odd
+
+// Output pixels a block owns (A's rows, M): 128 at O <= 128, 64 at O = 256.
+__host__ __device__ constexpr int wide_rows(int O) {
+  return O <= 128 ? 128 : 64;
+}
+
+// How the depthwise warps split a chunk's features. bf16 at O <= 128: a
+// warp takes one branch of four tile rows (3 M / 32 warps, 96 registers a
+// thread at 640 threads), each lane 8 pixels; else (the QDQ modes, whose
+// per-load QDQ wants the registers, and O = 256) a warp takes the three
+// branches of two tile rows (M / 16 warps), each lane 4 pixels.
+__host__ __device__ constexpr bool wide_by_branch(int O, int QM) {
+  return O <= 128 && QM == QNONE;
+}
+
+// Threads of a block: the MMA warpgroups and the depthwise warps.
+__host__ __device__ constexpr int wide_threads(int O, int QM) {
+  return WMMA + (wide_by_branch(O, QM) ? 3 * wide_rows(O)
+                                       : 2 * wide_rows(O));
+}
+
+// Stages of the input box ring (a box is loaded two chunks before its
+// use) and of the B ring (one chunk before).
+constexpr int WNBOX = 3, WNB = 2;
 
 // Dynamic shared memory of the wide variant, in bytes from a 128-byte
-// aligned base: 4 mbarriers | two buffers of one chunk's dw_w (27 WKC) and
-// dw_b (3 WKC) fp32 | two input boxes of WKC channels | A (64 x 3 WKC bf16
-// in core matrices A_LBO apart in K) | two B chunks (3 WKC x O bf16).
+// aligned base: mbarriers | two buffers of one chunk's dw_w (27 WKC) and
+// dw_b (3 WKC) fp32 | fuse_b, scale and shift (3 O fp32) | the box ring
+// (input boxes of WKC channels) | two A buffers (M x 3 WKC bf16 in core
+// matrices, A_LBO apart in K, W_SBO in M) | the B ring (chunks of 3 WKC x
+// O bf16) | the output tile, staged (M rows of O bf16 + 16 bytes).
 struct WSmem {
-  int wts, box, boxsz, a, b, bsz, total;
+  int wts, par, box, boxsz, a, asz, b, bsz, out, total;
   __host__ __device__ WSmem(int O, int box_bytes) {
     wts = 128;
-    box = Smem::up128(wts + 2 * 30 * WKC * 4);
+    par = wts + 2 * WNW * 4;
+    box = Smem::up128(par + 3 * O * 4);
     boxsz = Smem::up128(box_bytes);
-    a = box + 2 * boxsz;
-    b = Smem::up128(a + 3 * WKC * A_LBO);
-    bsz = 3 * WKC * O * 2;
-    total = b + 2 * bsz;
+    a = box + WNBOX * boxsz;
+    asz = wide_rows(O) / 8 * W_SBO;
+    b = Smem::up128(a + 2 * asz);
+    bsz = WK * O * 2;
+    out = b + WNB * bsz;
+    total = out + wide_rows(O) * (O * 2 + 16);
   }
 };
 
+__device__ __forceinline__ void mbar_init_count(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// A barrier of `count` threads (a multiple of 32) on hardware barrier id.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_n96(float (&d)[48], uint64_t da,
+                                          uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D(64 x N) += A(64 x 16) * B(16 x N) for the wide variant's N: O, or
+// half of O = 256.
+template <int N>
+__device__ __forceinline__ void wgmma_full(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db) {
+  if constexpr (N == 64) wgmma_n64(d, da, db);
+  else if constexpr (N == 96) wgmma_n96(d, da, db);
+  else wgmma_n128(d, da, db);
+}
+
+// Depthwise branch D of a spatial tile for SEG pixels px0.. of tile row py
+// and channels 4q..4q+3 of the chunk, into A. The box is hx pixels wide,
+// from (oy0-2, ox0-2); pixel px, tap (kh, kw) reads box row py+2-D+kh*S,
+// column px+2-D+kw*S, S = D+1. The SEG+2S columns of a box row are loaded
+// once each and feed every (px, kw) that reads them. A's row of pixel
+// (py, px) is py*8 + px.
+template <int D, int SEG, int QM>
+__device__ __forceinline__ void wide_dw_row(const __nv_bfloat16* box,
+                                            const float* wts,
+                                            unsigned char* a_s, int hx,
+                                            int q, int py, int px0,
+                                            const Qdq& qd) {
+  constexpr int S = D + 1, NCOL = SEG + 2 * S;
+  float acc[SEG][4];
+  const float4 bias =
+      *reinterpret_cast<const float4*>(wts + 27 * WKC + D * WKC + q * 4);
+  const float4 init = QM != QNONE ? make_float4(0.f, 0.f, 0.f, 0.f) : bias;
+#pragma unroll
+  for (int px = 0; px < SEG; ++px) {
+    acc[px][0] = init.x; acc[px][1] = init.y;
+    acc[px][2] = init.z; acc[px][3] = init.w;
+  }
+#pragma unroll
+  for (int kh = 0; kh < 3; ++kh) {
+    const __nv_bfloat16* row =
+        box + ((py + 2 - D + kh * S) * hx + px0 + 2 - D) * WKC + q * 4;
+    float4 w[3];
+#pragma unroll
+    for (int kw = 0; kw < 3; ++kw)
+      w[kw] = *reinterpret_cast<const float4*>(
+          wts + ((D * 3 + kh) * 3 + kw) * WKC + q * 4);
+#pragma unroll
+    for (int c = 0; c < NCOL; ++c) {
+      const uint2 v = *reinterpret_cast<const uint2*>(row + c * WKC);
+      const float2 lo = x_in<QM, D>(bf16x2_to_float2(v.x), qd);
+      const float2 hi = x_in<QM, D>(bf16x2_to_float2(v.y), qd);
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) {
+        const int px = c - kw * S;
+        if (px < 0 || px >= SEG) continue;
+        acc[px][0] = fmaf(lo.x, w[kw].x, acc[px][0]);
+        acc[px][1] = fmaf(lo.y, w[kw].y, acc[px][1]);
+        acc[px][2] = fmaf(hi.x, w[kw].z, acc[px][2]);
+        acc[px][3] = fmaf(hi.y, w[kw].w, acc[px][3]);
+      }
+    }
+  }
+  // A[m][D*WKC + 4q ..]: half a core-matrix row a pixel
+  const int k = D * WKC + q * 4;
+  unsigned char* dst =
+      a_s + a_offset(py * WTW + px0, k >> 3, WKP8) + (k & 7) * 2;
+#pragma unroll
+  for (int px = 0; px < SEG; ++px)
+    *reinterpret_cast<uint2*>(dst + px * 16) = make_uint2(
+        features<QM>(acc[px][0], acc[px][1], bias.x, bias.y, qd),
+        features<QM>(acc[px][2], acc[px][3], bias.z, bias.w, qd));
+}
+
 template <int NH, int QM>
-__global__ void __launch_bounds__(BTHREADS, NH <= 64 ? 2 : 1)
+__global__ void __launch_bounds__(wide_threads(2 * NH, QM), 1)
 acff_bf16_wide_kernel(const __grid_constant__ CUtensorMap xmap,
                       const float* __restrict__ dw_w,
                       const float* __restrict__ dw_b,
@@ -865,8 +1054,13 @@ acff_bf16_wide_kernel(const __grid_constant__ CUtensorMap xmap,
                       __nv_bfloat16* __restrict__ out, int B, int H, int W,
                       int C, int ostride, const Plan pl, int n_tiles,
                       const Qdq qd) {
-  constexpr int O = 2 * NH, K = 3 * WKC, KP8 = K / 8, NW = 30 * WKC;
-  constexpr int WREG = (NW + BTHREADS - 1) / BTHREADS;
+  constexpr int O = 2 * NH, M = wide_rows(O);
+  constexpr int WDW = wide_threads(O, QM) - WMMA;   // depthwise threads
+  constexpr int WREG = (WNW + WDW - 1) / WDW;
+  // each MMA warpgroup: 64 of A's rows x all O (O <= 128), or all 64 rows
+  // x half of O = 256
+  constexpr int NW = O <= 128 ? O : 128;
+  constexpr int NBOX = WNBOX, NB = WNB;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   unsigned char* sm = smem_raw + (((raw + 127u) & ~127u) - raw);
@@ -874,85 +1068,97 @@ acff_bf16_wide_kernel(const __grid_constant__ CUtensorMap xmap,
   const int box_bytes = pl.images * pl.hy * pl.hx * WKC * 2;
   const WSmem L(O, box_bytes);
   float* wbuf = reinterpret_cast<float*>(sm + L.wts);
-  unsigned char* a_s = sm + L.a;
-  // mbarriers: box buffers 0 and 1, then B stages 0 and 1
-  const uint32_t bar_box = smem_u32(sm), bar_b = bar_box + 16;
+  // mbarriers, one a stage: box (and TMA bytes) landed, B landed, A
+  // written (one arrival a depthwise warp), A read (the MMA side)
+  const uint32_t full_box = smem_u32(sm), full_b = full_box + 8 * NBOX;
+  const uint32_t full_a = full_b + 8 * NB, empty_a = full_a + 16;
 
   const int tid = threadIdx.x;
   const int OH = H - 2, OW = W - 2;
   const int per_image = pl.tiles_h * pl.tiles_w;
   const int my_tiles = (n_tiles - blockIdx.x + gridDim.x - 1) / gridDim.x;
   // a use is one (tile, chunk) of this block, in order; use u reads box
-  // buffer u & 1 and B stage u & 1
+  // u % NBOX, weights and A u % 2, B u % NB
   const int uses = my_tiles * nchunks;
 
   auto issue_box = [&](int u) {   // one thread: the box of use u
     const int it = u / nchunks, c = u - it * nchunks;
     const int t = blockIdx.x + it * gridDim.x, rem = t % per_image;
-    const uint32_t bar = bar_box + 8 * (u & 1);
+    const uint32_t bar = full_box + 8 * (u % NBOX);
     mbar_expect_tx(bar, box_bytes);
-    tma_load_box(smem_u32(sm + L.box + (u & 1) * L.boxsz), &xmap, bar,
+    tma_load_box(smem_u32(sm + L.box + u % NBOX * L.boxsz), &xmap, bar,
                  c * WKC, rem % pl.tiles_w * pl.tw - pl.origin,
                  rem / pl.tiles_w * pl.th - pl.origin,
                  t / per_image * pl.images);
   };
   auto issue_b = [&](int u) {     // one thread: B chunk of use u
-    const uint32_t bar = bar_b + 8 * (u & 1);
+    const uint32_t bar = full_b + 8 * (u % NB);
     mbar_expect_tx(bar, L.bsz);
-    bulk_load(smem_u32(sm + L.b + (u & 1) * L.bsz),
-              fuse_op + (size_t)(u % nchunks) * K * O, L.bsz, bar);
+    bulk_load(smem_u32(sm + L.b + u % NB * L.bsz),
+              fuse_op + (size_t)(u % nchunks) * WK * O, L.bsz, bar);
   };
   // One chunk's depthwise weights and biases, rows dw_w[d][kh][kw] then
-  // dw_b[d] of its WKC channels, zero past C.
-  auto fetch_weights = [&](float (&w)[WREG], int c) {
+  // dw_b[d] of its WKC channels, zero past C (depthwise thread dt).
+  auto fetch_weights = [&](float (&w)[WREG], int c, int dt) {
 #pragma unroll
     for (int k = 0; k < WREG; ++k) {
-      const int i = tid + k * BTHREADS, r = i / WKC;
+      const int i = dt + k * WDW, r = i / WKC;
       const int ch = c * WKC + i - r * WKC;
-      w[k] = i >= NW || ch >= C ? 0.f
+      w[k] = i >= WNW || ch >= C ? 0.f
              : r < 27 ? __ldg(dw_w + r * C + ch)
                       : __ldg(dw_b + (r - 27) * C + ch);
     }
   };
-  auto put_weights = [&](const float (&w)[WREG], int buf) {
+  auto put_weights = [&](const float (&w)[WREG], int buf, int dt) {
 #pragma unroll
     for (int k = 0; k < WREG; ++k)
-      if (tid + k * BTHREADS < NW) wbuf[buf * NW + tid + k * BTHREADS] = w[k];
+      if (dt + k * WDW < WNW) wbuf[buf * WNW + dt + k * WDW] = w[k];
   };
 
   if (tid == 0) {
-    for (int i = 0; i < 4; ++i) mbar_init(bar_box + 8 * i);
+    for (int i = 0; i < NBOX; ++i) mbar_init(full_box + 8 * i);
+    for (int i = 0; i < NB; ++i) mbar_init(full_b + 8 * i);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init_count(full_a + 8 * i, WDW / 32);
+      mbar_init(empty_a + 8 * i);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     fence_async_smem();
-    for (int u = 0; u < 2 && u < uses; ++u) {
-      issue_box(u);
-      issue_b(u);
-    }
+    for (int u = 0; u < NBOX && u < uses; ++u) issue_box(u);
+    for (int u = 0; u < NB && u < uses; ++u) issue_b(u);
   }
-  float wnext[WREG];
-  fetch_weights(wnext, 0);
-  put_weights(wnext, 0);
+  // the thread's warpgroup, as a value ptxas knows to be warp-uniform: a
+  // role branch on threadIdx itself makes it serialize the wgmmas
+  const int role = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (role >= WMMA / 128) {
+    float w[WREG];
+    fetch_weights(w, 0, tid - WMMA);
+    put_weights(w, 0, tid - WMMA);
+  } else {
+    float* par = reinterpret_cast<float*>(sm + L.par);
+    for (int i = tid; i < 3 * O; i += WMMA)
+      par[i] = i < O ? fuse_b[i] : i < 2 * O ? scale[i - O] : shift[i - 2 * O];
+  }
   __syncthreads();
 
-  const int wg = tid >> 7;
-  const uint32_t a_base = smem_u32(a_s);
-  int u = 0;
-  for (int it = 0; it < my_tiles; ++it) {
-    const int t = blockIdx.x + it * gridDim.x, rem = t % per_image;
-    const int b0 = t / per_image * pl.images;
-    const int oy0 = rem / pl.tiles_w * pl.th, ox0 = rem % pl.tiles_w * pl.tw;
-    float acc[NH / 2];
-#pragma unroll
-    for (int i = 0; i < NH / 2; ++i) acc[i] = 0.f;
-
-    for (int c = 0; c < nchunks; ++c, ++u) {
-      unsigned char* buf = sm + L.box + (u & 1) * L.boxsz;
+  if (role >= WMMA / 128) {
+    // ------------------------------------------------ depthwise warps
+    const int dt = tid - WMMA, warp = dt >> 5, lane = dt & 31;
+    float wnext[WREG];
+    int it = 0, c = 0, sb = 0, pb = 0;   // box stage and its phase
+    for (int u = 0; u < uses; ++u) {
+      const int s = u & 1;
+      unsigned char* buf = sm + L.box + sb * L.boxsz;
       const __nv_bfloat16* box = reinterpret_cast<const __nv_bfloat16*>(buf);
-      const float* wts = wbuf + (u & 1) * NW;
-      mbar_wait(bar_box + 8 * (u & 1), (u >> 1) & 1);
+      const float* wts = wbuf + s * WNW;
+      unsigned char* a_s = sm + L.a + s * L.asz;
+      const bool more = u + 1 < uses;
+      if (more) fetch_weights(wnext, c + 1 == nchunks ? 0 : c + 1, dt);
+      mbar_wait(full_box + 8 * sb, pb);
       if constexpr (QM == QSHARED) {
+        // the box as bf16(QDQ(x, s_x)), each element once, in place
         uint4* v = reinterpret_cast<uint4*>(buf);
-        for (int i = tid; i * 16 < box_bytes; i += BTHREADS) {
+        for (int i = dt; i * 16 < box_bytes; i += WDW) {
           uint4 e = v[i];
           e.x = qdq_bf16x2(e.x, qd.s[0], qd.inv[0]);
           e.y = qdq_bf16x2(e.y, qd.s[0], qd.inv[0]);
@@ -960,77 +1166,155 @@ acff_bf16_wide_kernel(const __grid_constant__ CUtensorMap xmap,
           e.w = qdq_bf16x2(e.w, qd.s[0], qd.inv[0]);
           v[i] = e;
         }
-        __syncthreads();
+        named_sync(2, WDW);
       }
+      if (u >= 2) mbar_wait(empty_a + 8 * s, ((u >> 1) + 1) & 1);
       if (pl.origin == 2) {
-        dw_rows<4, QM>(box, wts, a_s, WKC, KP8, tid, qd);
+        const int q = lane & 7;   // channels 4q..
+        if constexpr (wide_by_branch(O, QM)) {
+          // warp w: branch w / NQ of tile rows 4 (w % NQ) .. + 3, a lane
+          // the 8 pixels of row lane / 8 of them
+          constexpr int NQ = M / 32;
+          const int py = 4 * (warp % NQ) + (lane >> 3);
+          if (warp < NQ)
+            wide_dw_row<0, 8, QM>(box, wts, a_s, WHX, q, py, 0, qd);
+          else if (warp < 2 * NQ)
+            wide_dw_row<1, 8, QM>(box, wts, a_s, WHX, q, py, 0, qd);
+          else
+            wide_dw_row<2, 8, QM>(box, wts, a_s, WHX, q, py, 0, qd);
+        } else {
+          // warp w: tile rows 2w, 2w + 1, a lane pixels 4 (lane / 16) .. + 3
+          // of row lane / 8 % 2 of them
+          const int py = 2 * warp + ((lane >> 3) & 1), px0 = (lane >> 4) * 4;
+          wide_dw_row<0, 4, QM>(box, wts, a_s, WHX, q, py, px0, qd);
+          wide_dw_row<1, 4, QM>(box, wts, a_s, WHX, q, py, px0, qd);
+          wide_dw_row<2, 4, QM>(box, wts, a_s, WHX, q, py, px0, qd);
+        }
       } else {
+        // Whole images: one (branch d, pixel p, 8-channel group g) an item,
+        // eight neighbouring threads on the eight pixels of one A
+        // core-matrix row block, rotating g.
+        const int t = blockIdx.x + it * gridDim.x;
+        const int b0 = t / per_image * pl.images;
         constexpr int C8 = WKC / 8;
-        for (int i = tid; i < 3 * BM * C8; i += BTHREADS) {
-          const int j = i & 7, pr = (i >> 3) & 7, r = i >> 6;
+        for (int i = dt; i < 3 * M * C8; i += WDW) {
+          const int j = i & 7, pr = (i >> 3) % (M / 8), r = i / M;
           const int d = r / C8, g = (r % C8 + j) % C8, p = pr * 8 + j;
           int img, py, px;
-          const bool live = tile_pixel(pl, p, b0, oy0, ox0, B, OH, OW, img,
-                                       py, px);
-          *reinterpret_cast<uint4*>(a_s + a_offset(p, d * C8 + g, KP8)) =
-              live ? dw_pixel_branch<QM>(box, wts, pl, WKC, img, py, px, d, g,
-                                         qd)
+          const bool live = tile_pixel(pl, p, b0, 0, 0, B, OH, OW, img, py,
+                                       px);
+          *reinterpret_cast<uint4*>(a_s + a_offset(p, d * C8 + g, WKP8)) =
+              live ? dw_pixel_branch<QM>(box, wts, pl, WKC, img, py, px, d,
+                                         g, qd)
                    : make_uint4(0, 0, 0, 0);
         }
       }
-      fence_async_smem();   // A's generic stores, then wgmma's async reads
-      __syncthreads();      // and the box and weights of use u are read
-      if (tid == 0 && u + 2 < uses) issue_box(u + 2);
-      const bool next_weights = u + 1 < uses;
-      if (next_weights) fetch_weights(wnext, (c + 1) % nchunks);
+      fence_async_smem();   // A's (and the box's) generic stores, then the
+      __syncwarp();         // async proxy: wgmma reads A, TMA refills the box
+      if (lane == 0) mbar_arrive(full_a + 8 * s);
+      if (more) put_weights(wnext, s ^ 1, dt);
+      named_sync(2, WDW);   // the box and weights of use u are read
+      if (dt == 0 && u + NBOX < uses) issue_box(u + NBOX);
+      if (++sb == NBOX) {
+        sb = 0;
+        pb ^= 1;
+      }
+      if (++c == nchunks) {
+        c = 0;
+        ++it;
+      }
+    }
+    return;
+  }
 
-      // This chunk's 3*WKC rows of the fuse product, warpgroup wg computing
-      // output channels [wg*NH, +NH).
-      const uint32_t b_base =
-          smem_u32(sm + L.b + (u & 1) * L.bsz) + wg * (NH / 8) * K * 16;
-      mbar_wait(bar_b + 8 * (u & 1), (u >> 1) & 1);
+  // ---------------------------------------------------- MMA warpgroups
+  const int wg = role, lane = tid & 31, warp = (tid & 127) >> 5;
+  const int arow = O <= 128 ? 64 * wg : 0;      // this warpgroup's rows
+  const int col0 = O <= 128 ? 0 : NW * wg;      // and output columns
+  const uint32_t a_base = smem_u32(sm + L.a) + arow / 8 * W_SBO;
+  const uint32_t b_base = smem_u32(sm + L.b) + col0 / 8 * WK * 16;
+  float acc[NW / 2];
+  int u = 0, sb = 0, pb = 0;   // B stage and its phase
+  // Use r has run its product in both warpgroups: free its A buffer and
+  // load the B chunk NB uses on into its B stage.
+  auto release = [&](int r) {
+    named_sync(1, WMMA);
+    if (tid == 0) {
+      mbar_arrive(empty_a + 8 * (r & 1));
+      if (r + NB < uses) issue_b(r + NB);
+    }
+  };
+  for (int it = 0; it < my_tiles; ++it) {
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) acc[i] = 0.f;
+    for (int c = 0; c < nchunks; ++c, ++u) {
+      const int s = u & 1;
+      mbar_wait(full_a + 8 * s, (u >> 1) & 1);
+      mbar_wait(full_b + 8 * sb, pb);
+      const uint32_t a_st = a_base + s * L.asz, b_st = b_base + sb * L.bsz;
+      if (++sb == NB) {
+        sb = 0;
+        pb ^= 1;
+      }
       fence_operands(acc);
       asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-      for (int s = 0; s < K / 16; ++s)
-        wgmma<NH>(acc, gmma_desc(a_base + 2 * s * A_LBO, A_LBO, KP8 * A_LBO),
-                  gmma_desc(b_base + 2 * s * 128, 128, K * 16));
+      for (int k = 0; k < WK / 16; ++k)
+        wgmma_full<NW>(acc, gmma_desc(a_st + 2 * k * A_LBO, A_LBO, W_SBO),
+                       gmma_desc(b_st + 2 * k * 128, 128, WK * 16));
       asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      // chunk u's product runs while use u - 1 is freed (that of a tile's
+      // first chunk was freed after the tile before)
+      asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
       fence_operands(acc);
-      if (next_weights) put_weights(wnext, (u + 1) & 1);
-      __syncthreads();      // both warpgroups are done with A and B stage u
-      if (tid == 0 && u + 2 < uses) issue_b(u + 2);
+      if (c > 0) release(u - 1);
+      if (c + 1 == nchunks) {
+        asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+        fence_operands(acc);
+        release(u);
+      }
     }
 
-    // Epilogue from the accumulators, as the fp32 kernel stores it:
-    // accumulator d[4n + 2i + e] is row warp*16 + lane/4 + 8i, column
-    // 8n + 2*(lane%4) + e of this warpgroup's N.
-    const int lane = tid & 31, row0 = ((tid & 127) >> 5) * 16 + (lane >> 2);
-    __nv_bfloat16* dst[2];
+    // Epilogue: bias, LeakyReLU and the BN affine from the accumulators
+    // into the staged output tile (acc[4n + 2i + e] is A's row arow +
+    // warp*16 + lane/4 + 8i, column col0 + 8n + 2*(lane%4) + e; rows
+    // padded by 16 bytes: no bank conflicts), then 16-byte stores of its
+    // pixels' rows. A's row m is pixel (m / 8, m % 8) of a spatial tile,
+    // or pixel m of the packed whole images.
+    constexpr int SROW = O * 2 + 16, O8 = O / 8;
+    const float* par = reinterpret_cast<const float*>(sm + L.par);
+    unsigned char* stage = sm + L.out;
+    const int row = arow + warp * 16 + (lane >> 2);
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      int img, py, px;
-      dst[i] = tile_pixel(pl, row0 + 8 * i, b0, oy0, ox0, B, OH, OW, img, py,
-                          px)
-                   ? out + (((size_t)(b0 + img) * OH + oy0 + py) * OW + ox0 +
-                            px) * ostride
-                   : nullptr;
-    }
-#pragma unroll
-    for (int n = 0; n < NH / 8; ++n) {
-      const int col = wg * NH + n * 8 + (lane & 3) * 2;
-      const float2 fb = *reinterpret_cast<const float2*>(fuse_b + col);
-      const float2 sc = *reinterpret_cast<const float2*>(scale + col);
-      const float2 sh = *reinterpret_cast<const float2*>(shift + col);
+    for (int n = 0; n < NW / 8; ++n) {
+      const int col = col0 + n * 8 + (lane & 3) * 2;
+      const float2 fb = *reinterpret_cast<const float2*>(par + col);
+      const float2 sc = *reinterpret_cast<const float2*>(par + O + col);
+      const float2 sh = *reinterpret_cast<const float2*>(par + 2 * O + col);
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const float2 v =
             epilogue<QM>(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1], fb);
-        if (dst[i])
-          *reinterpret_cast<uint32_t*>(dst[i] + col) =
-              bf16x2(fmaf(v.x, sc.x, sh.x), fmaf(v.y, sc.y, sh.y));
+        *reinterpret_cast<uint32_t*>(stage + (row + 8 * i) * SROW + col * 2) =
+            bf16x2(fmaf(v.x, sc.x, sh.x), fmaf(v.y, sc.y, sh.y));
       }
+    }
+    named_sync(1, WMMA);
+    const int t = blockIdx.x + it * gridDim.x, rem = t % per_image;
+    const int b0 = t / per_image * pl.images;
+    const int oy0 = rem / pl.tiles_w * pl.th, ox0 = rem % pl.tiles_w * pl.tw;
+    for (int i = tid; i < M * O8; i += WMMA) {
+      const int p = i / O8, j = i - p * O8;
+      int img = 0, py = p >> 3, px = p & 7;
+      const bool keep =
+          pl.origin == 0
+              ? tile_pixel(pl, p, b0, oy0, ox0, B, OH, OW, img, py, px)
+              : oy0 + py < OH && ox0 + px < OW;
+      if (keep)
+        *reinterpret_cast<uint4*>(
+            out + (((size_t)(b0 + img) * OH + oy0 + py) * OW + ox0 + px) *
+                      ostride + j * 8) =
+            *reinterpret_cast<const uint4*>(stage + p * SROW + j * 16);
     }
   }
 }
@@ -1571,9 +1855,9 @@ EncodeTiled encode_tiled() {
 }
 
 // Allows `bytes` of dynamic shared memory (above 48 KB once per kernel)
-// and gives the blocks that fit on one SM; the last answer is kept, since
-// one model calls each width at one or two sizes.
-template <auto Kernel>
+// and gives the blocks of `Threads` threads that fit on one SM; the last
+// answer is kept, since one model calls each width at one or two sizes.
+template <auto Kernel, int Threads = BTHREADS>
 cudaError_t configure(int bytes, int* per_sm) {
   if (bytes > 227 * 1024) return cudaErrorInvalidValue;
   static int allowed = 48 * 1024, last_bytes = -1, last_per_sm = 0;
@@ -1585,7 +1869,7 @@ cudaError_t configure(int bytes, int* per_sm) {
   }
   if (bytes != last_bytes) {
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &last_per_sm, Kernel, BTHREADS, bytes);
+        &last_per_sm, Kernel, Threads, bytes);
     if (e != cudaSuccess) return e;
     if (last_per_sm < 1) return cudaErrorInvalidConfiguration;
     last_bytes = bytes;
@@ -1635,10 +1919,10 @@ cudaError_t encode_box(CUtensorMap* map, CUtensorMapDataType type, int esize,
 
 // Persistent grid: as many blocks as fit on the card at once (at most one
 // a tile), each walking the tiles t = blockIdx.x, + gridDim.x, ...
-template <auto Kernel>
+template <auto Kernel, int Threads = BTHREADS>
 cudaError_t persistent_grid(int bytes, int n_tiles, int* grid) {
   int sms = 0, per_sm = 0;
-  cudaError_t e = configure<Kernel>(bytes, &per_sm);
+  cudaError_t e = configure<Kernel, Threads>(bytes, &per_sm);
   if (e == cudaSuccess) e = sm_count(&sms);
   *grid = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
   return e;
@@ -1684,9 +1968,11 @@ cudaError_t launch_bf16_wide(const void* x, const float* dw_w,
   const int bytes = bf16_wide_smem(2 * NH, pl);
   int grid = 0;
   if (e == cudaSuccess)
-    e = persistent_grid<acff_bf16_wide_kernel<NH, QM>>(bytes, n_tiles, &grid);
+    e = persistent_grid<acff_bf16_wide_kernel<NH, QM>,
+                        wide_threads(2 * NH, QM)>(bytes, n_tiles, &grid);
   if (e != cudaSuccess) return e;
-  acff_bf16_wide_kernel<NH, QM><<<grid, BTHREADS, bytes, stream>>>(
+  acff_bf16_wide_kernel<NH, QM>
+      <<<grid, wide_threads(2 * NH, QM), bytes, stream>>>(
       map, dw_w, dw_b, static_cast<const __nv_bfloat16*>(fuse_op), fuse_b,
       scale, shift, static_cast<__nv_bfloat16*>(out), B, H, W, C, ostride,
       pl, n_tiles, qd);
@@ -1747,12 +2033,12 @@ cudaError_t by_qmode(int qm, F&& f) {
   }
 }
 
-// configure<Kernel> for `bytes` of dynamic shared memory, and the kernel's
-// registers a thread.
-template <auto Kernel>
+// configure<Kernel, Threads> for `bytes` of dynamic shared memory, and the
+// kernel's registers a thread.
+template <auto Kernel, int Threads = BTHREADS>
 cudaError_t footprint(int bytes, int* per_sm, int* regs) {
   cudaFuncAttributes attr;
-  cudaError_t e = configure<Kernel>(bytes, per_sm);
+  cudaError_t e = configure<Kernel, Threads>(bytes, per_sm);
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, Kernel);
   if (e == cudaSuccess) *regs = attr.numRegs;
   return e;
@@ -1771,12 +2057,13 @@ cudaError_t footprint(int bytes, int* per_sm, int* regs) {
 // fuse_op is fuse_w packed for the kernel of the mode
 // (ops/acff.py::pack_fuse_operand for bf16, pack_fuse_operand_wide for the
 // wide variant, pack_fuse_operand_tf32 for fp32); th .. n_tiles are the
-// tile plan (ops/acff.py::tile_plan). Output pixel p's O values go to
-// out[p * ostride ..] (ostride >= O, a multiple of 8), so that launches of
-// slices of O write their columns of one output.
+// tile plan (ops/acff.py::tile_plan; wide_tile_plan in modes 4-6). Output
+// pixel p's O values go to out[p * ostride ..] (ostride >= O, a multiple
+// of 8), so that launches of slices of O write their columns of one
+// output.
 // Sizes: the TMA tensor map takes any B, H and W (its dimensions go to
-// 2^32; the boxes stay 14x14 or a whole image of at most 10x10), and the
-// tile count is an int.
+// 2^32; the boxes stay 14x14, 22x15 or 14x15, or a whole image of at most
+// 10x10), and the tile count is an int.
 extern "C" int acff_infer_launch(const void* x, const float* dw_w,
                                  const float* dw_b, const void* fuse_op,
                                  const float* fuse_b, const float* scale,
@@ -1788,13 +2075,22 @@ extern "C" int acff_infer_launch(const void* x, const float* dw_w,
                                  float s_x3, float s_f, void* stream) {
   const Plan pl{th, tw, images, tiles_h, tiles_w, hy, hx, origin};
   const long long per_batch = (B + images - 1) / (images > 0 ? images : 1);
+  const bool wide = mode >= 4;
   // The two tile shapes of tile_plan: 8x8 spatial tiles with a 14x14 box
-  // from (oy0-2, ox0-2), or whole th x tw images with the image as the box.
-  const bool spatial = origin == 2 && th == 8 && tw == 8 && images == 1 &&
-                       hy == 14 && hx == 14;
+  // from (oy0-2, ox0-2), or whole th x tw images with the image as the box;
+  // in the wide variant those of wide_tile_plan: wth x 8 tiles (wth = M /
+  // 8) with a (wth + 6) x 15 box, or whole images in its M rows, their box
+  // no larger.
+  const int wth = wide_rows(O) / WTW;
+  const bool spatial =
+      wide ? origin == 2 && th == wth && tw == WTW && images == 1 &&
+                 hy == wth + 6 && hx == WHX
+           : origin == 2 && th == 8 && tw == 8 && images == 1 && hy == 14 &&
+                 hx == 14;
   const bool whole = origin == 0 && tiles_h == 1 && tiles_w == 1 &&
                      th == H - 2 && tw == W - 2 && hy == H && hx == W &&
-                     th * tw * images <= BM;
+                     th * tw * images <= (wide ? wide_rows(O) : BM) &&
+                     (!wide || images * hy * hx <= (wth + 6) * WHX);
   if (B < 1 || H < 3 || W < 3 || C < 1 || fuse_op == nullptr ||
       images < 1 || !(spatial || whole) || ostride < O || ostride % 8 ||
       (long long)n_tiles != per_batch * tiles_h * tiles_w)
@@ -1809,7 +2105,6 @@ extern "C" int acff_infer_launch(const void* x, const float* dw_w,
                                               ostride, pl, n_tiles, s);
     }));
   }
-  const bool wide = mode >= 4;
   const int qm = (wide ? mode - 3 : mode) - 1;
   // a TMA box row holds at most 256 elements: the whole C, or WKC
   if (C % 8 || (!wide && C > 256)) return static_cast<int>(cudaErrorInvalidValue);
@@ -1847,8 +2142,10 @@ extern "C" int acff_bf16_wide_footprint(int O, int images, int hy, int hx,
     constexpr int NH = decltype(nh)::value;
     *smem_bytes = bf16_wide_smem(2 * NH, pl);
     return by_qmode(mode - 4, [&](auto qm) {
-      return footprint<acff_bf16_wide_kernel<NH, decltype(qm)::value>>(
-          *smem_bytes, blocks_per_sm, regs);
+      constexpr int QM = decltype(qm)::value;
+      return footprint<acff_bf16_wide_kernel<NH, QM>,
+                       wide_threads(2 * NH, QM)>(*smem_bytes, blocks_per_sm,
+                                                 regs);
     });
   }));
 }

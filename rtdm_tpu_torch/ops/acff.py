@@ -284,13 +284,14 @@ def unpack_fuse_operand(packed: torch.Tensor, c: int, o: int) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class TilePlan:
-    """Which output pixels one thread block of the bf16 kernel owns.
+    """Which output pixels one thread block of a kernel owns.
 
     A tile is ``images`` images (from ``b0``) of ``th`` x ``tw`` output
     pixels at (oy0, ox0); its input box is ``images`` x ``hy`` x ``hx``
     pixels from (oy0 - origin, ox0 - origin). Pixel p of the tile (p <
-    images*th*tw <= 64) is image p // (th*tw), row (p % (th*tw)) // tw,
-    column p % tw; rows past the batch or the image are masked."""
+    images*th*tw <= 64, or ``wide_rows(O)`` in the wide-C variant) is
+    image p // (th*tw), row (p % (th*tw)) // tw, column p % tw; rows past
+    the batch or the image are masked."""
     th: int
     tw: int
     images: int
@@ -331,6 +332,34 @@ def tile_plan(b: int, h: int, w: int) -> TilePlan:
                     b * tiles_h * tiles_w)
 
 
+def wide_rows(o: int) -> int:
+    """Output pixels one block of the wide-C variant owns at width O (A's
+    rows): 128 at O <= 128 (each of two MMA warpgroups 64 rows x O), 64 at
+    O = 256 (each 64 rows x 128 columns)."""
+    return 128 if o <= 128 else 64
+
+
+@functools.lru_cache(maxsize=64)
+def wide_tile_plan(b: int, h: int, w: int, o: int) -> TilePlan:
+    """The wide-C variant's tiles at width O: th x 8 output pixels (th =
+    ``wide_rows(o)`` / 8: 16 at O <= 128, 8 at O = 256) with a (th + 6) x
+    15 input box from (oy0 - 2, ox0 - 2), one column past the halo so that
+    the box rows alternate bank halves (zero outside the image). Where the
+    whole output fits 8x8 (as ``tile_plan``), whole images packed into the
+    block's ``wide_rows(o)`` rows, as many as that and a spatial tile's
+    box allow."""
+    oh, ow = h - 2, w - 2
+    th = wide_rows(o) // TILE_SIDE
+    hy, hx = th + HALO, TILE_SIDE + HALO + 1
+    if oh <= TILE_SIDE and ow <= TILE_SIDE:
+        images = max(1, min(b, wide_rows(o) // (oh * ow),
+                            hy * hx // (h * w)))
+        return TilePlan(oh, ow, images, 1, 1, h, w, 0, -(-b // images))
+    tiles_h, tiles_w = -(-oh // th), -(-ow // TILE_SIDE)
+    return TilePlan(th, TILE_SIDE, 1, tiles_h, tiles_w, hy, hx, 2,
+                    b * tiles_h * tiles_w)
+
+
 def bf16_smem_bytes(c: int, o: int, plan: TilePlan) -> int:
     """Dynamic shared memory of one bf16 block, as ``Smem`` in
     ``csrc/acff.cu`` lays it out, plus the 128 bytes that align its base:
@@ -361,17 +390,21 @@ def fp32_smem_bytes(c: int, o: int, plan: TilePlan) -> int:
 
 
 def bf16_wide_smem_bytes(o: int, plan: TilePlan) -> int:
-    """Dynamic shared memory of one block of the bf16 wide-C variant, as
-    ``WSmem`` in ``csrc/acff.cu`` lays it out, plus the 128 bytes that align
-    its base: 4 mbarriers; two buffers of one chunk's dw_w and dw_b in
-    fp32; two input boxes of ``WIDE_KC`` channels; A (64 x 3 WIDE_KC bf16,
-    core matrices ``A_LBO`` apart in K); two B chunks (3 WIDE_KC x O bf16).
-    C does not enter it."""
+    """Dynamic shared memory of one block of the bf16 wide-C variant on
+    ``plan`` (``wide_tile_plan``), as ``WSmem`` in ``csrc/acff.cu`` lays it
+    out, plus the 128 bytes that align its base: its mbarriers; two
+    buffers of one chunk's dw_w and dw_b in fp32; fuse_b, scale and shift;
+    a ring of 3 input boxes of ``WIDE_KC`` channels; two A buffers
+    (``wide_rows(o)`` x 3 WIDE_KC bf16, core matrices ``A_LBO`` apart in
+    K); two B chunks (3 WIDE_KC x O bf16); the staged output tile
+    (``wide_rows(o)`` rows of O bf16 + 16 bytes). C does not enter it."""
     def up(v: int) -> int:
         return -(-v // 128) * 128
     box = plan.images * plan.hy * plan.hx * WIDE_KC * 2
-    a = up(128 + 2 * 30 * WIDE_KC * 4) + 2 * up(box)
-    return up(a + 3 * WIDE_KC * A_LBO) + 2 * 3 * WIDE_KC * o * 2 + 128
+    a = up(128 + 2 * 30 * WIDE_KC * 4 + 3 * o * 4) + 3 * up(box)
+    a_buf = wide_rows(o) // 8 * (3 * WIDE_KC // 8) * A_LBO
+    b = up(a + 2 * a_buf) + 2 * 3 * WIDE_KC * o * 2
+    return b + wide_rows(o) * (2 * o + 16) + 128
 
 
 def pack_fuse_operand_wide(fuse_w: torch.Tensor) -> torch.Tensor:
@@ -643,6 +676,7 @@ def _launch(x: torch.Tensor, dw_w, dw_b, operand: torch.Tensor, fuse_b,
     b, h, w, c = x.shape
     plan = tile_plan(b, h, w)
     if quant.endswith("_wide"):
+        plan = wide_tile_plan(b, h, w, width)
         smem = bf16_wide_smem_bytes(width, plan)
     elif quant == "fp32":
         smem = fp32_smem_bytes(c, width, plan)

@@ -4,6 +4,8 @@
 Run from the root of a checkout, on a machine with an H100:
 
     python3 scripts/acff_phase_times.py [--quant bf16|int8|int8_branch|fp32]
+    python3 scripts/acff_phase_times.py --quant bf16_wide|int8_wide|\
+        int8_branch_wide [--root CHECKOUT]
 
 ``ncu`` is not available everywhere the kernel is measured, so this times
 variants of ``rtdm_tpu_torch/csrc/acff.cu`` with one phase removed each,
@@ -40,6 +42,21 @@ a replacement that no longer matches the source stops the script, so an
 edit of those lines of the kernel is an edit of ``CUTS`` too. Times are
 CUDA-graph replays (``chip_smoke.graph_ms``). Prints one line per shape
 and a JSON object.
+
+The wide-C variant (``--quant bf16_wide``, ``int8_wide``,
+``int8_branch_wide``: ``acff_bf16_wide_kernel`` in each mode) runs its own
+cuts at ``chip_smoke.WIDE_SHAPES`` (batch 256): ``no_dw`` (no depthwise
+features), ``no_mma`` (no wgmma), ``no_b`` (no B chunk loads: the product
+reads whatever the buffers hold), ``no_store`` (no output stores),
+``skeleton`` (all four removed) and, for ``int8_wide``, ``no_boxq`` (no
+QDQ pass over the box; in ``skeleton`` too). ``--root`` names the checkout
+whose ``csrc/acff.cu`` and ``rtdm_tpu_torch`` (its tile plan and packed
+operand) are measured, by default this one, so that two commits can be
+timed in turns in one call on one card; the cuts are those of the design
+the source holds (``WIDE_CUTS``: "serial", one 64-pixel tile a block with
+every chunk's phases in turn; "pipelined", warp-specialised; the text of
+each cut must occur once). ``--only whole`` (or any list of variant
+names, comma-separated) builds and times those alone.
 """
 
 from __future__ import annotations
@@ -56,14 +73,31 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (BRANCH_SPREAD, DTYPES, ENGINES,  # noqa: E402
-                        FP64_REL_TOL, GOLDEN, MODELS, acff_inputs, card_line,
-                        graph_ms, real_input_errors)
+
+def _root() -> Path:
+    """The checkout named by ``--root`` (read before the imports below, so
+    that ``rtdm_tpu_torch`` comes from it)."""
+    args = sys.argv[1:]
+    for i, a in enumerate(args):
+        if a == "--root" and i + 1 < len(args):
+            return Path(args[i + 1]).resolve()
+        if a.startswith("--root="):
+            return Path(a.split("=", 1)[1]).resolve()
+    return ROOT
+
+
+MEASURED = _root()
+sys.path.insert(0, str(MEASURED))
 from rtdm_tpu_torch.ops import acff as ops, kernels  # noqa: E402
 
-OUT = ROOT / "build" / "phase_variants"
+# chip_smoke from this checkout; the package stays the measured one's
+sys.path.insert(0, str(ROOT))
+from chip_smoke import (BRANCH_SPREAD, DTYPES, ENGINES,  # noqa: E402
+                        FP64_REL_TOL, GOLDEN, MODELS, WIDE_SHAPES,
+                        acff_inputs, card_line, graph_ms, real_input_errors)
+
+OUT = ROOT / "build" / "phase_variants" / MEASURED.name
 SHAPES = [(16, 64, 69), (8, 64, 69), (64, 96, 33), (96, 128, 15),
           (128, 256, 6)]
 BATCH = 256
@@ -153,8 +187,77 @@ CUTS_FP32["chunk_runs"] = [(PRODUCT, """\
 ACCURACY = ("whole", "one_tf32", "chunk_runs")
 
 
-def variant_sources(cuts_by_name: dict) -> dict:
-    src = (kernels.CSRC / "acff.cu").read_text()
+def wide_cut_set(design: str, quant: str) -> dict:
+    """The cuts of ``design`` run for ``quant``, with ``skeleton``, and
+    ``no_boxq`` (in ``skeleton`` too) in the shared-box QDQ mode alone,
+    where the pass runs."""
+    cuts, boxq = WIDE_CUTS[design]
+    out = dict(cuts)
+    out["skeleton"] = [c for name in ("no_dw", "no_mma", "no_b", "no_store")
+                       for c in cuts[name]]
+    if quant == "int8_wide":
+        out["no_boxq"] = boxq
+        out["skeleton"] = out["skeleton"] + boxq
+    return out
+
+
+# The cuts of each design of the wide-C variant, and its no_boxq cut.
+# "serial": one 64-pixel tile a block, every 32-channel chunk's phases in
+# turn (box, QDQ pass, depthwise into one A, product, wait) by all 256
+# threads.
+WIDE_CUTS = {
+    "serial": ({
+        "no_dw": [("        dw_rows<4, QM>(box, wts, a_s, WKC, KP8, tid, "
+                   "qd);\n", "")],
+        "no_mma": [("for (int s = 0; s < K / 16; ++s)",
+                    "for (int s = 0; s < 0; ++s)")],
+        "no_b": [("      issue_b(u);\n", ""),
+                 ("* K * 16;\n      mbar_wait(bar_b + 8 * (u & 1), (u >> 1) "
+                  "& 1);\n", "* K * 16;\n"),
+                 ("      if (tid == 0 && u + 2 < uses) issue_b(u + 2);\n",
+                  "")],
+        "no_store": [("        if (dst[i])\n", "        if (B < 0)\n")],
+    }, [("for (int i = tid; i * 16 < box_bytes; i += BTHREADS) {",
+         "for (int i = tid; i < 0; i += BTHREADS) {")]),
+    # "pipelined": 128 (O = 256: 64) pixels a block, depthwise warps
+    # filling two A buffers while two MMA warpgroups run the product
+    "pipelined": ({
+        "no_dw": [("""\
+          if (warp < NQ)
+            wide_dw_row<0, 8, QM>(box, wts, a_s, WHX, q, py, 0, qd);
+          else if (warp < 2 * NQ)
+            wide_dw_row<1, 8, QM>(box, wts, a_s, WHX, q, py, 0, qd);
+          else
+            wide_dw_row<2, 8, QM>(box, wts, a_s, WHX, q, py, 0, qd);
+""", "          (void)py;\n"), ("""\
+          wide_dw_row<0, 4, QM>(box, wts, a_s, WHX, q, py, px0, qd);
+          wide_dw_row<1, 4, QM>(box, wts, a_s, WHX, q, py, px0, qd);
+          wide_dw_row<2, 4, QM>(box, wts, a_s, WHX, q, py, px0, qd);
+""", "          (void)q; (void)py; (void)px0;\n")],
+        "no_mma": [("for (int k = 0; k < WK / 16; ++k)",
+                    "for (int k = 0; k < 0; ++k)")],
+        "no_b": [("    for (int u = 0; u < NB && u < uses; ++u) issue_b(u);\n",
+                  ""),
+                 ("      mbar_wait(full_b + 8 * sb, pb);\n", ""),
+                 ("      if (r + NB < uses) issue_b(r + NB);\n", "")],
+        "no_store": [("      if (keep)\n", "      if (B < 0)\n")],
+    }, [("for (int i = dt; i * 16 < box_bytes; i += WDW) {",
+         "for (int i = dt; i < 0; i += WDW) {")]),
+}
+
+
+def wide_design(src: str) -> str:
+    """The design in ``WIDE_CUTS`` whose every cut text occurs once in
+    ``src``."""
+    for name, (cuts, boxq) in WIDE_CUTS.items():
+        if all(src.count(old) == 1
+               for c in [*cuts.values(), boxq] for old, _ in c):
+            return name
+    raise SystemExit("no design of WIDE_CUTS matches the wide-C variant "
+                     "in this source")
+
+
+def variant_sources(cuts_by_name: dict, src: str) -> dict:
     out = {"whole": src}
     for name, cuts in cuts_by_name.items():
         text = src
@@ -227,18 +330,89 @@ def real_inputs(fns: dict) -> dict:
     return result
 
 
+def wide_plan(b: int, h: int, w: int, o: int):
+    """The tile plan the measured checkout's wrapper launches the wide-C
+    variant on (checkouts without ``wide_tile_plan`` ran it on
+    ``tile_plan``)."""
+    plan = getattr(ops, "wide_tile_plan", None)
+    return plan(b, h, w, o) if plan is not None else ops.tile_plan(b, h, w)
+
+
+def wide_times(quant: str, fns: dict, card: str) -> dict:
+    """Each variant's time at every shape of ``WIDE_SHAPES``, batch
+    ``BATCH``, through the C entry with the measured checkout's packed
+    operand and tile plan."""
+    rng = np.random.default_rng(0)
+    times = {}
+    for c, o, h in WIDE_SHAPES:
+        host = [rng.standard_normal((BATCH, h, h, c), dtype=np.float32),
+                rng.normal(size=(3, 3, 3, c)) * 0.3, rng.normal(size=(3, c)),
+                rng.normal(size=(3 * c, o)) / np.sqrt(3 * c),
+                rng.normal(size=o), rng.uniform(0.5, 1.5, o),
+                rng.normal(size=o)]
+        a = [torch.from_numpy(v.astype(np.float32)).cuda() for v in host]
+        a[0] = a[0].bfloat16()
+        fuse_op = ops.pack_fuse_operand_wide(a[3])
+        plan = wide_plan(BATCH, h, h, o)
+        qs = [0.0] * 4
+        if quant != "bf16_wide":
+            s_x = a[0].float().abs().max().item() / 127
+            spread = (BRANCH_SPREAD if quant == "int8_branch_wide"
+                      else (1.0,) * 3)
+            feat = ops.depthwise_features(*a[:3])
+            qs = [s_x * f for f in spread] + [feat.abs().max().item() / 127]
+        out = torch.empty((BATCH, h - 2, h - 2, o), dtype=torch.bfloat16,
+                          device="cuda")
+        key = f"{h}x{h}x{c}->{o}"
+        times[key] = {}
+        for name, fn in fns.items():
+            def call(fn=fn):
+                rc = fn(a[0].data_ptr(), a[1].data_ptr(), a[2].data_ptr(),
+                        fuse_op.data_ptr(), a[4].data_ptr(), a[5].data_ptr(),
+                        a[6].data_ptr(), out.data_ptr(), BATCH, h, h, c, o,
+                        ops.MODES[quant], o, *plan.scalars(), *qs,
+                        torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"{name} launch failed: CUDA error "
+                                       f"{rc}")
+            times[key][name] = graph_ms(call, 20)
+        print(f"phases {quant} {key} batch {BATCH} ({MEASURED.name}): "
+              + " ".join(f"{k}={v:.4f}" for k, v in times[key].items())
+              + f" ms [{card}]", flush=True)
+        del a, fuse_op, out
+    return times
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--quant", choices=tuple(ops.MODES), default="bf16")
-    quant = ap.parse_args().quant
+    ap.add_argument("--root", type=Path, default=ROOT,
+                    help="the checkout whose kernel is measured")
+    ap.add_argument("--only", default=None,
+                    help="comma-separated variants to build and time")
+    args = ap.parse_args()
+    quant = args.quant
+    only = None if args.only is None else set(args.only.split(","))
     if not torch.cuda.is_available():
         print("CUDA is not available", file=sys.stderr)
         return 2
-    bf16 = quant != "fp32"
-    fns = build_all(variant_sources(
-        CUTS_INT8 if quant == "int8" else CUTS if bf16 else CUTS_FP32))
-    rng = np.random.default_rng(0)
+    src = (kernels.CSRC / "acff.cu").read_text()
     card = card_line()
+    if quant.endswith("_wide"):
+        design = wide_design(src)
+        sources = variant_sources(wide_cut_set(design, quant), src)
+        fns = build_all({k: v for k, v in sources.items()
+                         if only is None or k in only})
+        print(json.dumps({"card": card, "quant": quant, "batch": BATCH,
+                          "root": MEASURED.name, "design": design,
+                          "ms": wide_times(quant, fns, card)}))
+        return 0
+    bf16 = quant != "fp32"
+    sources = variant_sources(
+        CUTS_INT8 if quant == "int8" else CUTS if bf16 else CUTS_FP32, src)
+    fns = build_all({k: v for k, v in sources.items()
+                     if only is None or k in only})
+    rng = np.random.default_rng(0)
     dtype = DTYPES[quant]
     result = {"card": card, "quant": quant, "batch": BATCH, "ms": {}}
     for c, o, h in SHAPES:
@@ -290,7 +464,8 @@ def main() -> int:
             flush=True)
         del a, fuse_op, out, ref
     if not bf16:
-        result["real_inputs"] = real_inputs({k: fns[k] for k in ACCURACY})
+        result["real_inputs"] = real_inputs({k: fns[k] for k in ACCURACY
+                                             if k in fns})
     print(json.dumps(result))
     return 0
 

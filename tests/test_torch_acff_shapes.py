@@ -27,6 +27,9 @@ MAIN_PATH = [(16, 64, 69), (64, 96, 33), (96, 128, 15), (128, 256, 6),
              (128, 256, 9)]
 CHANNELS = (3, 12, 150, 300)
 OUTPUTS = (1, 32, 100, 320)
+# (C, O, H=W) of the wide-C variant at batch 256 (chip_smoke.WIDE_SHAPES)
+WIDE_SHAPES = [(160, 128, 18), (256, 128, 18), (192, 256, 18),
+               (384, 128, 18)]
 # mode -> act_scales (None: the kernel of x's dtype); the int8 scales are
 # powers of two, under which QDQ keeps the integer inputs exact
 MODES = {"fp32": None, "bf16": None, "int8": (1.0, 1.0, 1.0, 1.0),
@@ -127,17 +130,63 @@ def test_wide_variant_engages_where_the_bf16_block_does_not_fit(c, o, hw,
             base + "_wide" * wide
     # the fp32 kernel streams its channels: never a wide variant
     assert ops.kernel_variant(torch.float32, None, c, o, plan) == "fp32"
-    assert ops.bf16_wide_smem_bytes(o, plan) <= ops.SMEM_LIMIT
+    assert ops.bf16_wide_smem_bytes(
+        o, ops.wide_tile_plan(256, hw, hw, o)) <= ops.SMEM_LIMIT
 
 
 @pytest.mark.parametrize("o", ops.WIDTHS)
 def test_wide_smem_fits_every_plan(o):
-    """The wide variant's block fits 227 KB at every tile plan (C does not
-    enter it): 8x8 tiles and every packing of whole small images."""
-    plans = [ops.tile_plan(256, hw, hw) for hw in range(3, 11)]
-    plans += [ops.tile_plan(256, 3, w) for w in range(3, 11)]
+    """The wide variant's block fits 227 KB at every tile plan of
+    ``wide_tile_plan`` (C does not enter it): its spatial tile (16x8 at O
+    <= 128, 8x8 at O = 256) and every packing of whole small images, whose
+    box is never larger than the spatial tile's."""
+    plans = [ops.wide_tile_plan(b, hw, hw, o) for b in (1, 3, 256)
+             for hw in list(range(3, 11)) + [11, 18, 300]]
+    plans += [ops.wide_tile_plan(256, 3, w, o) for w in range(3, 11)]
+    spatial = ops.wide_tile_plan(256, 18, 18, o)
+    assert (spatial.th, spatial.tw) == (16 if o <= 128 else 8, 8)
+    for p in plans:
+        assert p.images * p.hy * p.hx <= spatial.hy * spatial.hx
+        assert p.images * p.th * p.tw <= ops.wide_rows(o)
     assert max(ops.bf16_wide_smem_bytes(o, p) for p in plans) \
-        <= ops.SMEM_LIMIT
+        == ops.bf16_wide_smem_bytes(o, spatial) <= ops.SMEM_LIMIT
+
+
+def _wide_rows_pixels(plan, o, t):
+    """(batch index, row, column, live) of A's rows of tile t, as the wide
+    kernel's epilogue maps them: image-major, then row-major (a spatial
+    tile is one image's th x 8 pixels)."""
+    m = np.arange(ops.wide_rows(o))
+    b0, oy0, ox0 = plan.tile_origin(t)
+    img, q = divmod(m, plan.th * plan.tw)
+    py, px = divmod(q, plan.tw)
+    return b0 + img, oy0 + py, ox0 + px, img < plan.images
+
+
+@pytest.mark.parametrize("o", [128, 256])
+@pytest.mark.parametrize("b", [1, 3, 256])
+@pytest.mark.parametrize("hw", [3, 6, 18, 37, 300])
+def test_wide_tile_plan_covers_each_pixel_once(hw, b, o):
+    """Every output pixel of the batch is one live row of one tile of
+    ``wide_tile_plan``, spatial tiles and packed whole images alike, and a
+    spatial tile's box holds every tap of its pixels (a (th + 6) x 15 box
+    from (oy0 - 2, ox0 - 2), its rows an odd number of pixels apart)."""
+    plan = ops.wide_tile_plan(b, hw, hw, o)
+    oh = hw - 2
+    if plan.origin == 2:
+        assert plan.hy >= plan.th + ops.HALO and plan.hx >= plan.tw + ops.HALO
+        assert plan.hx % 2 == 1
+    seen = np.zeros(b * oh * oh, bool)
+    step = max(1, (1 << 20) // ops.wide_rows(o))
+    for t0 in range(0, plan.n_tiles, step):
+        rows = [_wide_rows_pixels(plan, o, t)
+                for t in range(t0, min(plan.n_tiles, t0 + step))]
+        bi, y, x, live = (np.concatenate(a) for a in zip(*rows))
+        live &= (bi < b) & (y < oh) & (x < oh)
+        idx = (bi[live] * oh + y[live]) * oh + x[live]
+        assert len(np.unique(idx)) == len(idx) and not seen[idx].any()
+        seen[idx] = True
+    assert seen.all()
 
 
 @pytest.mark.parametrize("c,o", [(152, 64), (160, 128), (256, 256),
@@ -191,7 +240,8 @@ def test_fuse_operands_pack_each_launch_once():
 def test_cuda_shapes_past_the_kernels_match_plain():
     """Fault 2's shapes on the card, each mode, against the plain version:
     C in {3, 12, 150, 300}, O in {1, 32, 100, 320}, H = W in {3, 300}
-    (batch 2 and 1), and a batch of 65537 3x3 images at C = 1. fp32 at
+    (batch 2 and 1), a batch of 65537 3x3 images at C = 1, and the wide-C
+    variant's timed shapes at batch 3 and 256. fp32 at
     rtol 1e-4 / atol 1e-5 (TF32 off for the plain version), bf16 and int8
     at bf16's 2e-2 (the features and the output are rounded to bf16; the
     wide-C variant sums K in chunk order), as the kernels' own tests."""
@@ -202,6 +252,8 @@ def test_cuda_shapes_past_the_kernels_match_plain():
     cases = [(2, c, o, 3) for c in CHANNELS for o in OUTPUTS]
     cases += [(1, c, o, 300) for c, o in zip(CHANNELS, OUTPUTS)]
     cases += [(65537, 1, 32, 3)]
+    # the wide-C variant's timed shapes (chip_smoke.WIDE_SHAPES)
+    cases += [(b, c, o, hw) for b in (3, 256) for c, o, hw in WIDE_SHAPES]
     rng = np.random.default_rng(0)
     for b, c, o, hw in cases:
         for mode, qs in MODES.items():

@@ -38,6 +38,14 @@ rank suppresses within its own frames, as each shard does in JAX) and
 all-gathers ``(det, count)``, so each rank returns what the one-process
 detector returns.
 
+Spans (``utils/profiler.py::span``): ``det:upload``, ``det:normalize``,
+``det:network``, ``det:decode``, ``det:nms``; each point where a call
+blocks the host on the device is a ``:wait`` span inside them:
+``det:upload:wait`` (the copy of the frames), ``det:decode:wait`` (each
+head's anchors and stride, copied from the host), ``det:nms:wait``
+(``ops/nms.py``) and, in ``__call__``, ``det:download:wait`` around each
+copy back.
+
 Not ported: ``exec.xla`` / the executable cache (XLA executables, TPU
 only: neither written nor read).
 """
@@ -51,7 +59,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from rtdm_tpu_torch.core.device import resolve_device
 from rtdm_tpu_torch.core.mesh import (data_sharding, mesh_device,
@@ -61,6 +68,7 @@ from rtdm_tpu_torch.models.io import (flatten_tree, load_variables,
                                       save_variables,
                                       torch_state_dict_from_variables)
 from rtdm_tpu_torch.parallel.comms import all_gather_along
+from rtdm_tpu_torch.utils.profiler import span
 
 
 @dataclasses.dataclass
@@ -307,9 +315,9 @@ class Detector:
     def raw_maps(self, u8: torch.Tensor):
         """Device uint8 NHWC -> the network's raw NHWC head maps."""
         with tf32(self.spec.quant != "fp32"):
-            with record_function("det:normalize"):
+            with span("det:normalize"):
                 x = self._preprocess(u8)
-            with record_function("det:network"):
+            with span("det:network"):
                 return self.net(x)
 
     @torch.inference_mode()
@@ -320,7 +328,7 @@ class Detector:
         from rtdm_tpu_torch.ops.yolo import decode_all
         if not self.spec.tta:
             raw = self.raw_maps(u8)
-            with tf32(False), record_function("det:decode"):
+            with tf32(False), span("det:decode"):
                 return decode_all(raw, self.heads, tuple(u8.shape[1:3]))
         s = self.spec.img_size
         if tuple(u8.shape[1:3]) != (s, s):
@@ -328,12 +336,11 @@ class Detector:
                              "TTA pyramid is square)")
 
         def apply_pred(xi, si):
-            with tf32(self.spec.quant != "fp32"), \
-                    record_function("det:network"):
+            with tf32(self.spec.quant != "fp32"), span("det:network"):
                 raw = self.net(xi)
-            with tf32(False), record_function("det:decode"):
+            with tf32(False), span("det:decode"):
                 return decode_all(raw, self.heads, (si, si))
-        with record_function("det:normalize"):
+        with span("det:normalize"):
             inv255 = torch.tensor(np.float32(1.0) / np.float32(255.0))
             x = (u8.float() * inv255).to(self.dtype)
         with tf32(False):
@@ -357,7 +364,7 @@ class Detector:
         spec = self.spec
         pred = self.decoded(u8)
         with tf32(False):
-            with record_function("det:nms"):
+            with span("det:nms"):
                 return batched_nms(pred, spec.conf_thres, spec.iou_thres,
                                    spec.max_det, spec.top_k,
                                    multi_label=spec.multi_label,
@@ -380,12 +387,13 @@ class Detector:
                              f"{frames.dtype} {tuple(frames.shape)}")
         rows = (slice(0, b) if self.mesh is None
                 else data_sharding(self.mesh).rows(b))
-        with record_function("det:upload"):
+        with span("det:upload"):
             x = torch.zeros((rows.stop - rows.start,)
                             + tuple(frames.shape[1:]), dtype=torch.uint8,
                             device=self.device)
             mine = frames[rows.start:min(rows.stop, n)]
-            x[:mine.shape[0]].copy_(mine)
+            with span("det:upload:wait"):
+                x[:mine.shape[0]].copy_(mine)
         return x, n
 
     def submit(self, images_u8):
@@ -409,8 +417,11 @@ class Detector:
 
     def __call__(self, images_u8) -> Tuple[np.ndarray, np.ndarray]:
         det, count, n = self.submit(images_u8)
-        with record_function("det:download"):
-            return det[:n].cpu().numpy(), count[:n].cpu().numpy()
+        with span("det:download:wait"):
+            det = det[:n].cpu()
+        with span("det:download:wait"):
+            count = count[:n].cpu()
+        return det.numpy(), count.numpy()
 
 
 def build_detector(model_path: str, weights: Optional[str] = None,

@@ -25,6 +25,12 @@ axis, the batch a multiple of it): every rank is handed the global batch,
 runs its own rows through the network on its device (its ACFF blocks
 launching the kernel of the engine's precision on them) and all-gathers
 the outputs, so each rank returns what the one-process engine returns.
+
+Spans (``utils/profiler.py::span``): ``engine:upload`` from the zeroed
+device batch through the copy, ``engine:upload:wait`` around the copy (it
+blocks the host until the card has taken the frames), ``engine:forward``
+around normalize, network, softmax and the cast, and
+``engine:download:wait`` around ``__call__``'s copy back.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from rtdm_tpu_torch.models.io import (flatten_tree, infer_num_classes,
 from rtdm_tpu_torch.parallel.comms import all_gather_along
 from rtdm_tpu_torch.quant.calibrate import calibrate_classifier
 from rtdm_tpu_torch.quant.int8 import quantize_classifier, quantize_params
+from rtdm_tpu_torch.utils.profiler import span
 
 
 @dataclasses.dataclass
@@ -113,10 +120,12 @@ class Engine:
                              f"{frames.dtype} {tuple(frames.shape)}")
         rows = (slice(0, b) if self.mesh is None
                 else data_sharding(self.mesh).rows(b))
-        x = torch.zeros((rows.stop - rows.start, s, s, 3), dtype=torch.uint8,
-                        device=self.device)
-        mine = frames[rows.start:min(rows.stop, n)]
-        x[:mine.shape[0]].copy_(mine)
+        with span("engine:upload"):
+            x = torch.zeros((rows.stop - rows.start, s, s, 3),
+                            dtype=torch.uint8, device=self.device)
+            mine = frames[rows.start:min(rows.stop, n)]
+            with span("engine:upload:wait"):
+                x[:mine.shape[0]].copy_(mine)
         if self.dtype != torch.float32:   # bf16 convs take no TF32
             out = self._forward(x)
         else:
@@ -125,12 +134,16 @@ class Engine:
         return out if self.mesh is None else all_gather_along(out, self.mesh)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = normalize_batch(x, self._mean, self._std).to(self.dtype)
-        return self.model(x, apply_softmax=self.spec.with_softmax).float()
+        with span("engine:forward"):
+            x = normalize_batch(x, self._mean, self._std).to(self.dtype)
+            return self.model(x, apply_softmax=self.spec.with_softmax).float()
 
     def __call__(self, images_u8) -> np.ndarray:
         n = images_u8.shape[0]
-        return self.dispatch(images_u8)[:n].cpu().numpy()
+        out = self.dispatch(images_u8)[:n]
+        with span("engine:download:wait"):
+            out = out.cpu()
+        return out.numpy()
 
     def save(self, directory: str) -> str:
         os.makedirs(directory, exist_ok=True)

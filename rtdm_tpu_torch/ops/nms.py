@@ -17,8 +17,10 @@ box sums are taken in another order (within a few ulps).
 The greedy keep is the fixpoint of ``keep[i] = valid[i] & ~any_{j<i}(keep[j]
 & iou[j, i] > thr)``: its unique solution is the sequential greedy result,
 reached by Jacobi steps from ``keep = valid``. Each step ends in one host
-sync (the convergence test). The soft and 'and' variants walk the K
-candidates one at a time, as the reference's loops do.
+sync (the convergence test), a ``det:nms:wait`` span
+(``utils/profiler.py::span``), as is the copy of the ``classes`` mask to
+the device. The soft and 'and' variants walk the K candidates one at a
+time, as the reference's loops do.
 """
 
 from __future__ import annotations
@@ -27,9 +29,9 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from rtdm_tpu_torch.ops.numerics import exp_f32
+from rtdm_tpu_torch.utils.profiler import span
 
 METHODS = ("greedy", "or", "vision_batch", "merge", "soft", "and")
 
@@ -64,7 +66,9 @@ def greedy_keep(iou: torch.Tensor, valid: torch.Tensor, iou_thres: float
     while steps < k:
         new = valid & ~(keep[..., :, None] & s).any(-2)
         steps += 1
-        if torch.equal(new, keep):
+        with span("det:nms:wait"):
+            converged = torch.equal(new, keep)
+        if converged:
             break
         keep = new
     return keep, steps
@@ -143,7 +147,8 @@ def batched_nms(pred: torch.Tensor, conf_thres: float = 0.001,
     if classes is not None:
         a = np.zeros((nc,), bool)
         a[[c for c in classes if 0 <= int(c) < nc]] = True
-        allowed = torch.as_tensor(a, device=dev)
+        with span("det:nms:wait"):
+            allowed = torch.as_tensor(a, device=dev)
 
     if multi_label and nc > 1:
         flat = cls_probs.reshape(b, n * nc)
@@ -179,8 +184,7 @@ def batched_nms(pred: torch.Tensor, conf_thres: float = 0.001,
     elif method == "and":
         keep = and_keep(iou, valid, same_cls, iou_thres)
     else:
-        with record_function("det:nms:fixpoint"):
-            keep, steps = greedy_keep(iou, valid, iou_thres)
+        keep, steps = greedy_keep(iou, valid, iou_thres)
         if stats is not None:
             stats["greedy_steps"] = steps
         if method == "merge":
@@ -209,9 +213,8 @@ def _top(key: torch.Tensor, top_k: int):
     """``lax.top_k`` along the last axis: the k largest, ties to the lower
     index, k = min(top_k, length)."""
     k = min(top_k, key.shape[-1])
-    with record_function("det:nms:topk"):
-        values, idx = torch.sort(key, dim=-1, descending=True, stable=True)
-        return values[:, :k], idx[:, :k]
+    values, idx = torch.sort(key, dim=-1, descending=True, stable=True)
+    return values[:, :k], idx[:, :k]
 
 
 def scale_coords(det: torch.Tensor, model_hw: Tuple[int, int],

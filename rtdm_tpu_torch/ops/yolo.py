@@ -16,7 +16,9 @@ The stride is per axis (input w / nx, input h / ny), so ``img_size`` may be
 an (h, w) pair. Everything runs in fp32 with the compiled reference's exp
 and sigmoid (``ops/numerics.py``) and its one fused multiply-add.
 ``raw_to_train_layout`` gives the training loss its (B, na, ny, nx, no)
-view of a map.
+view of a map. A head's anchors and stride are built on the host and
+copied to the map's device, each copy a ``det:decode:wait`` span
+(``utils/profiler.py::span``): on the card it blocks the host.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from rtdm_tpu_torch.ops.numerics import exp_f32, sigmoid_f32
+from rtdm_tpu_torch.utils.profiler import span
 
 
 def _hw(img_size):
@@ -40,12 +43,14 @@ def decode_head(p: torch.Tensor, anchors_px, img_size, num_classes: int,
                 v5: bool = False) -> torch.Tensor:
     """(B, ny, nx, na*(5+nc)) raw map -> (B, na*ny*nx, 5+nc) decoded."""
     b, ny, nx, _ = p.shape
-    anchors = torch.as_tensor(np.asarray(anchors_px, np.float32),
-                              device=p.device)
+    with span("det:decode:wait"):
+        anchors = torch.as_tensor(np.asarray(anchors_px, np.float32),
+                                  device=p.device)
     na, no = anchors.shape[0], num_classes + 5
     in_h, in_w = _hw(img_size)
-    stride = torch.tensor([np.float32(in_w / nx), np.float32(in_h / ny)],
-                          device=p.device)
+    with span("det:decode:wait"):
+        stride = torch.tensor([np.float32(in_w / nx), np.float32(in_h / ny)],
+                              device=p.device)
     p = p.reshape(b, ny, nx, na, no).float()
     gy, gx = torch.meshgrid(torch.arange(ny, device=p.device),
                             torch.arange(nx, device=p.device), indexing="ij")

@@ -38,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from rtdm_tpu_torch.utils.profiler import span
+
 ACFF_SCALE_KEYS = ("conv1", "conv2", "conv3", "fused_conv")
 # the int32 products of int8_matmul: the calls, those padded with zero rows
 # (torch._int_mm needs more than MIN_INT_MM_ROWS) and the rows added
@@ -146,7 +148,7 @@ def quantize_classifier(model: nn.Module, act_scales: Mapping[str, Any]
 
 def _qdq_hook(scale: float):
     def hook(m, args):
-        with torch.profiler.record_function("qdq"):
+        with span("qdq"):
             return (fake_quant_tensor(args[0].float(), scale).to(
                 m.weight.dtype),) + args[1:]
     return hook

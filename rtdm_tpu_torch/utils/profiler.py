@@ -15,6 +15,9 @@ Counterpart of ``rtdm_tpu/utils/profiler.py``:
 - ``trace``: a ``torch.profiler`` trace of the ``with`` body, written as a
   Chrome trace into a directory (TensorBoard's PyTorch profiler plugin or
   chrome://tracing read it).
+- ``span``: the program's named ranges (``engine:*``, ``det:*``, ``qdq``).
+  A range whose name ends in ``:wait`` covers one point where the call
+  blocks the host on the device.
 """
 
 from __future__ import annotations
@@ -33,6 +36,18 @@ from rtdm_tpu_torch.core.device import resolve_device
 
 # busy watts of a device without a power reading
 DEFAULT_WATTS = {"cpu": 65.0}
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` where a profiler would
+    record one on this thread, or while compiling or exporting; otherwise
+    one shared no-op context, since a ``record_function`` costs its
+    dispatcher round trip even with no profiler running."""
+    if torch.compiler.is_compiling() or torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _force(result: Any) -> None:

@@ -42,7 +42,13 @@ non-zero exit, and the result line is printed only at the end:
      the CPU and against the committed JAX goldens
      (tests/goldens/torch_port/classifier_logits.npz, fp32;
      classifier_int8_logits.npz, int8), with the launch count of each ACFF
-     kernel in each engine forward, each counted from 0; the fp32 kernel,
+     kernel in each engine forward, each counted from 0 (an Engine on the
+     card replays its forward as a CUDA graph captured at its first call,
+     export/engine.py: the launches it recorded, Engine.graphs, are
+     counted, 4 of its precision for Squeeze_ErNET; a path's count from 0
+     holds one capture, 4 in its warm-up and 4 into the graph, whatever
+     its number of batches; the forwards whose block inputs are collected
+     run eagerly, eager_forward); the fp32 kernel,
      on the inputs each ACFF block of the fp32 engines gets from the
      golden frames, against the plain version in float64: its largest
      error (FP64_REL_TOL) and its mean signed error (BIAS_TOL), beside the
@@ -434,6 +440,46 @@ def _read_launches(path, launches, want=None):
                              != sum(want.values())):
         raise AssertionError(f"{path}: ACFF launches {got}, expected {want}")
     return got
+
+
+def _captured_launches(path, launches, eng, n_blocks, made=None):
+    """Record under ``path`` the ACFF launches that ``eng`` recorded into
+    the CUDA graph of each forward it captured (``Engine.graphs``; a
+    replay launches nothing from the host); fail unless each holds
+    ``n_blocks`` of the engine's precision, and, where ``made`` says how
+    many captures the calls since ``_count_from_zero`` made, unless they
+    launched ``n_blocks`` in each capture's warm-up and ``n_blocks`` into
+    its graph and nothing else."""
+    from rtdm_tpu_torch.ops.acff import ACFF_KERNEL, LAUNCHES
+    quant = eng.spec.normalized_quant()
+    got = [g.launches for g in eng.graphs.values()]
+    launches[path] = {k: sum(g[k] for g in got) for k in LAUNCHES}
+    if not got or any(g != _only(quant, n_blocks) for g in got):
+        raise AssertionError(f"{path}: ACFF launches in the captured "
+                             f"forwards {got}, expected "
+                             f"{_only(quant, n_blocks)} each")
+    if made is not None and (
+            dict(LAUNCHES) != _only(quant, 2 * n_blocks * made)
+            or ACFF_KERNEL.launches != 2 * n_blocks * made):
+        raise AssertionError(f"{path}: ACFF launches {dict(LAUNCHES)} for "
+                             f"{made} capture(s), expected "
+                             f"{_only(quant, 2 * n_blocks * made)}")
+    return got
+
+
+def eager_forward(eng, frames):
+    """``eng``'s eager forward (``Engine._forward``, what its CUDA graph
+    replays; an fp32 engine's with TF32 off) on ``frames`` zero-padded to
+    its batch, as numpy rows of the frames: forward hooks on its modules
+    fire and the ACFF kernel bound at the call runs, which a replay of the
+    captured graph would not do."""
+    from rtdm_tpu_torch.core.precision import tf32
+    b, s = eng.spec.batch_size, eng.spec.image_size
+    x = torch.zeros((b, s, s, 3), dtype=torch.uint8, device=eng.device)
+    x[:len(frames)] = torch.as_tensor(frames).to(eng.device)
+    with torch.inference_mode(), (tf32(False) if eng.dtype == torch.float32
+                                  else contextlib.nullcontext()):
+        return eng._forward(x)[:len(frames)].cpu().numpy()
 
 
 def _percentiles(ms):
@@ -846,19 +892,31 @@ def phase_end_to_end(frames, golden, golden_int8):
     block of the fp32 engines gets from the golden frames
     (``real_input_errors``), and the QDQ mode on those each block of the
     int8 engines gets (``int8_real_input_errors``). The launch counts of
-    the ACFF kernels are set to 0 just before each engine forward and read
-    just after it; returns, by path, the launches of the kernel of that
-    path's precision, and the real-input rows by precision."""
+    the ACFF kernels are set to 0 just before each engine call and read
+    just after it: an engine's first call captures its forward as a CUDA
+    graph, which must hold one launch a block (``_captured_launches``),
+    and the eager forwards that collect the blocks' inputs launch one a
+    block; returns, by path, the launches of the kernel of that path's
+    precision, and the real-input rows by precision."""
     from rtdm_tpu_torch.export.engine import Engine
     from rtdm_tpu_torch.ops.acff import ACFF_KERNEL, LAUNCHES
     launches, real = {}, {"fp32": [], "int8": []}
 
     def counted(path, n_blocks, eng, x):
-        quant = eng.spec.normalized_quant()
+        """``eng(x)``, the engine's first call: one capture."""
         _count_from_zero()
         out = eng(x)
+        got = _captured_launches(path, {}, eng, n_blocks, made=1)
+        launches[path] = got[0][eng.spec.normalized_quant()]
+        return out
+
+    def counted_eager(path, n_blocks, eng, x):
+        """The eager forward on ``x``: one launch a block."""
+        quant = eng.spec.normalized_quant()
+        _count_from_zero()
+        out = eager_forward(eng, x)
         launches[path] = LAUNCHES[quant]
-        want = {q: n_blocks if q == quant else 0 for q in LAUNCHES}
+        want = _only(quant, n_blocks)
         if LAUNCHES != want or ACFF_KERNEL.launches != n_blocks:
             raise AssertionError(f"{path}: ACFF launches {LAUNCHES} for one "
                                  f"forward, expected {want}")
@@ -897,8 +955,8 @@ def phase_end_to_end(frames, golden, golden_int8):
                     quant, f"{model} {quant}: card vs port-on-CPU")
             if quant == "fp32":
                 with acff_inputs(eng.model, len(gx)) as blocks:
-                    gl = counted(f"{model}/fp32 golden frames", n_blocks,
-                                 eng, gx)
+                    gl = counted_eager(f"{model}/fp32 golden frames",
+                                       n_blocks, eng, gx)
                 against(gl, golden[model], "fp32",
                         f"{model} fp32: card vs JAX golden")
                 for row in real_input_errors(blocks):
@@ -928,7 +986,8 @@ def phase_end_to_end(frames, golden, golden_int8):
         against(counted(f"{model}/int8", n_blocks, eng, x), cpu(x), "int8",
                 f"{model} int8: card vs port-on-CPU")
         with acff_inputs(eng.model, len(gx)) as blocks:
-            gl = counted(f"{model}/int8 golden frames", n_blocks, eng, gx)
+            gl = counted_eager(f"{model}/int8 golden frames", n_blocks, eng,
+                               gx)
         against(gl, golden_int8[model], "int8",
                 f"{model} int8: card vs JAX int8 golden")
         for row in int8_real_input_errors(blocks):
@@ -1039,10 +1098,13 @@ def phase_profile(eng, x, card, forwards=5):
         for _ in range(forwards):
             eng(x)
         wall_us = (time.perf_counter() - t0) * 1e6
+    # the engine:* ranges' copies on the device timeline span idle gaps
+    # and the kernels inside them: skipped, as detector_profile skips det:*
     rows = sorted(((e.self_device_time_total, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), reverse=True)
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("engine:")), reverse=True)
     busy = sum(r[0] for r in rows)
     if not rows:
         say("profile: the profiler recorded no device time; breakdown not "
@@ -1606,8 +1668,10 @@ def phase_serve(card, work, launches):
                  "detect": detect.batcher.stats().as_dict()}
         path = (f"rtdm-serve classify fp32 ({stats['classify']['batches']} "
                 f"batches beside the int8 detector)")
-        _read_launches(path, launches,
-                       _only("fp32", 4 * stats["classify"]["batches"]))
+        # the service's warm-up call captured the engine's forward as a
+        # CUDA graph, which every batch replays: no launch from the host
+        _read_launches(f"{path}, replayed", launches, _only("fp32", 0))
+        _captured_launches(path, launches, classify.engine, 4)
     finally:
         server.shutdown()
         server.server_close()
@@ -1727,9 +1791,10 @@ def phase_realtime(card, launches):
                                       engine_dir, "--batch", str(b),
                                       "--power"])
         batches = -(-REALTIME_FRAMES // b)
+        # one capture (4 in its warm-up, 4 into the graph), then replays
         _read_launches(f"realtime_inference bf16 --batch {b} "
-                       f"({REALTIME_FRAMES} frames)", launches,
-                       _only("bf16", 4 * batches))
+                       f"({REALTIME_FRAMES} frames, {batches} batches)",
+                       launches, _only("bf16", 2 * 4))
         if report["frames"] != REALTIME_FRAMES or \
                 report["predictions"] != want:
             raise AssertionError(f"realtime --batch {b}: labels differ from "
@@ -2909,7 +2974,10 @@ def phase_native_served(card, launches, golden, bodies):
         batches = svc.batcher.stats().as_dict()["batches"]
         path = (f"rtdm-serve classify bf16, native JPEG frames ({batches} "
                 f"batches)")
-        _read_launches(path, launches, _only("bf16", 4 * batches))
+        # the service's warm-up call captured the engine's forward as a
+        # CUDA graph, which every batch replays: no launch from the host
+        _read_launches(f"{path}, replayed", launches, _only("bf16", 0))
+        _captured_launches(path, launches, svc.engine, 4)
     finally:
         svc.batcher.close()
     if any(r is None for r in replies):
@@ -3149,11 +3217,13 @@ def multi_gpu_rank(rank: int, world: int, store: str, out: str) -> None:
     res, frames = {}, _multi_frames()
     for quant in MULTI_ENGINES:
         eng = _multi_engine(quant, mesh)
-        eng(frames[:1])                    # warm-up
+        eng(frames[:1])                    # captures the rank's forward
         torch.cuda.synchronize()
         _count_from_zero()
         res[f"engine/{quant}"] = eng(frames)
-        res[f"launches/{quant}"] = LAUNCHES[quant]
+        (captured,) = eng.graphs.values()
+        res[f"launches/{quant}"] = captured.launches[quant]
+        res[f"replay_launches/{quant}"] = sum(LAUNCHES.values())
     metrics, final = golden_train_case(_train_golden(), "a", "cuda",
                                        mesh=mesh)
     res.update({f"train/{k}": v for k, v in metrics.items()})
@@ -3284,12 +3354,14 @@ def phase_multi_gpu(card, work, launches):
     for quant in MULTI_ENGINES:
         plain, dp = _multi_engine(quant), _multi_engine(quant, mesh)
         want = plain(frames)
-        dp(frames[:1])
+        dp(frames[:1])                     # captures the forward
         torch.cuda.synchronize()
         _count_from_zero()
         got = dp(frames)
-        _read_launches(f"multi-GPU engine {quant}, NCCL mesh of 1",
-                       launches, _only(quant, 4))
+        _read_launches(f"multi-GPU engine {quant}, NCCL mesh of 1, replayed",
+                       launches, _only(quant, 0))
+        _captured_launches(f"multi-GPU engine {quant}, NCCL mesh of 1",
+                           launches, dp, 4)
         if not np.array_equal(got, want):
             raise AssertionError(f"DP engine {quant}: not bit-equal to the "
                                  f"engine without a mesh (max |d| "
@@ -3480,16 +3552,20 @@ def phase_multi_gpu(card, work, launches):
         gaps = [float(np.abs(r[f"engine/{quant}"] - ref[f"engine/{quant}"])
                       .max()) for r in ranks]
         counts = [int(r[f"launches/{quant}"]) for r in ranks]
+        replayed = [int(r[f"replay_launches/{quant}"]) for r in ranks]
         gloo[f"engine_{quant}"] = {
             "bit_equal_to_rows_engines": equal,
             "max_abs_prob_diff_to_whole_batch": gaps,
             "launches_per_rank": counts}
         for r, n in enumerate(counts):
             launches[f"multi-GPU engine {quant}, gloo rank {r} of "
-                     f"{MULTI_RANKS}"] = _only(quant, n)
-        if not all(equal) or counts != [4] * MULTI_RANKS:
+                     f"{MULTI_RANKS}, in its captured forward"] = \
+                _only(quant, n)
+        if not all(equal) or counts != [4] * MULTI_RANKS or \
+                replayed != [0] * MULTI_RANKS:
             raise AssertionError(f"gloo DP engine {quant}: bit-equal to the "
-                                 f"rows' engines {equal}, launches {counts}")
+                                 f"rows' engines {equal}, launches {counts} "
+                                 f"captured, {replayed} replayed")
     train_f = {k[12:]: v for k, v in ranks[0].items()
                if k.startswith("train/final/")}
     gloo["train_step_excess"] = _step_excess(train_f, ref["train"][1])
@@ -3671,15 +3747,15 @@ def phase_tooling(card, work, launches):
         eng = Engine(spec, from_pt, loaded.act_scales)
         _count_from_zero()
         got = eng(frames)
-        _read_launches(f"tooling/.pt {quant} engine", launches,
-                       _only(quant, 4))
+        _captured_launches(f"tooling/.pt {quant} engine", launches, eng, 4,
+                           made=1)
         if not np.array_equal(got, want):
             raise AssertionError(f".pt {quant} engine: logits differ from "
                                  f"the .npz engine's by "
                                  f"{np.abs(got - want).max()}")
         say(f"tooling .pt: squeeze-ernet {quant} engine from the reference "
             f"state dict bit-equal to the .npz engine on the 10 golden "
-            f"frames; 4 {quant} ACFF launches a forward")
+            f"frames; 4 {quant} ACFF launches in its captured forward")
     rec["seconds"]["classifier_pt"] = time.perf_counter() - t0
 
     # (b) darknet .weights: save, load, serve; pth_to_weights both ways

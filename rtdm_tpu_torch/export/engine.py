@@ -26,10 +26,24 @@ runs its own rows through the network on its device (its ACFF blocks
 launching the kernel of the engine's precision on them) and all-gathers
 the outputs, so each rank returns what the one-process engine returns.
 
+On the card ``dispatch`` replays the forward as one CUDA graph
+(``CapturedForward``): the first call at a given number of rows (the
+spec's batch, or the rank's rows under a mesh) warms the eager forward up
+on a side stream and captures it on a static uint8 input; every call then
+copies its frames into that input, zeroes the rows past them, replays the
+graph and returns a copy of its output, so a batch in flight keeps its
+answer while the next one replays. The replayed output is the eager
+forward's bit for bit. The graph holds the model's parameters and the
+ACFF blocks' packed arguments as they were at capture: an engine's
+weights do not change after its first call. On the CPU the forward runs
+eagerly; ``_forward`` stays the eager forward, which ``torch.export``
+traces (``cli/export_model.py``).
+
 Spans (``utils/profiler.py::span``): ``engine:upload`` from the zeroed
 device batch through the copy, ``engine:upload:wait`` around the copy (it
 blocks the host until the card has taken the frames), ``engine:forward``
-around normalize, network, softmax and the cast, and
+around normalize, network, softmax and the cast (on the card: around the
+replay and the output's copy), ``engine:graph`` around the replay, and
 ``engine:download:wait`` around ``__call__``'s copy back.
 """
 
@@ -38,7 +52,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Any, Dict, Optional
+import threading
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -53,6 +68,7 @@ from rtdm_tpu_torch.models.ernet import create_model, input_size_for
 from rtdm_tpu_torch.models.io import (flatten_tree, infer_num_classes,
                                       load_variables,
                                       torch_state_dict_from_variables)
+from rtdm_tpu_torch.ops.acff import LAUNCHES
 from rtdm_tpu_torch.parallel.comms import all_gather_along
 from rtdm_tpu_torch.quant.calibrate import calibrate_classifier
 from rtdm_tpu_torch.quant.int8 import quantize_classifier, quantize_params
@@ -72,6 +88,19 @@ class EngineSpec:
 
     def normalized_quant(self) -> str:
         return normalized_quant(self.quant)
+
+
+@dataclasses.dataclass
+class CapturedForward:
+    """The engine's forward at one number of rows on one card, captured
+    as a CUDA graph: it reads the static uint8 input ``x`` and writes the
+    static output ``out``; ``launches`` holds the ACFF launches
+    (``ops/acff.py::LAUNCHES``, by kernel) recorded into it, since a
+    replay launches nothing from the host."""
+    graph: torch.cuda.CUDAGraph
+    x: torch.Tensor
+    out: torch.Tensor
+    launches: Dict[str, int]
 
 
 class Engine:
@@ -104,6 +133,12 @@ class Engine:
             quantize_classifier(self.model, act_scales)
         self._mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
         self._std = torch.as_tensor(IMAGENET_STD, device=self.device)
+        # on the card: the captured forward by (rows, device), and the lock
+        # that one call holds from its upload into the static input through
+        # the copy of the graph's output (the serve batcher dispatches from
+        # its own thread)
+        self.graphs: Dict[Tuple[int, torch.device], CapturedForward] = {}
+        self._lock = threading.Lock()
 
     @torch.inference_mode()
     def dispatch(self, images_u8) -> torch.Tensor:
@@ -120,18 +155,68 @@ class Engine:
                              f"{frames.dtype} {tuple(frames.shape)}")
         rows = (slice(0, b) if self.mesh is None
                 else data_sharding(self.mesh).rows(b))
-        with span("engine:upload"):
-            x = torch.zeros((rows.stop - rows.start, s, s, 3),
-                            dtype=torch.uint8, device=self.device)
-            mine = frames[rows.start:min(rows.stop, n)]
-            with span("engine:upload:wait"):
-                x[:mine.shape[0]].copy_(mine)
-        if self.dtype != torch.float32:   # bf16 convs take no TF32
-            out = self._forward(x)
+        mine = frames[rows.start:min(rows.stop, n)]
+        if self.device.type == "cuda":
+            out = self._replay(mine, rows.stop - rows.start)
         else:
-            with tf32(False):
-                out = self._forward(x)
+            with span("engine:upload"):
+                x = torch.zeros((rows.stop - rows.start, s, s, 3),
+                                dtype=torch.uint8, device=self.device)
+                with span("engine:upload:wait"):
+                    x[:mine.shape[0]].copy_(mine)
+            out = self._eager(x)
         return out if self.mesh is None else all_gather_along(out, self.mesh)
+
+    def _replay(self, mine: torch.Tensor, rows: int) -> torch.Tensor:
+        """``mine`` (at most ``rows`` frames) through the captured forward
+        of ``rows`` rows, captured at its first call: a copy of its
+        output."""
+        s = self.spec.image_size
+        k = mine.shape[0]
+        with self._lock:
+            captured = self.graphs.get((rows, self.device))
+            x = (captured.x if captured is not None else
+                 torch.empty((rows, s, s, 3), dtype=torch.uint8,
+                             device=self.device))
+            with span("engine:upload"):
+                if k < rows:
+                    x[k:].zero_()
+                with span("engine:upload:wait"):
+                    x[:k].copy_(mine)
+            if captured is None:
+                captured = self._capture(x)
+                self.graphs[(rows, self.device)] = captured
+            with span("engine:forward"):
+                with span("engine:graph"):
+                    captured.graph.replay()
+                return captured.out.clone()
+
+    def _capture(self, x: torch.Tensor) -> CapturedForward:
+        """The forward on the static input ``x`` as a CUDA graph, after one
+        eager forward on a side stream that sets what the capture must find
+        ready: the kernels' attributes, cuDNN's choice and the ACFF blocks'
+        packed arguments. Another thread may use the card meanwhile
+        (``thread_local``: only this thread's calls are held to the
+        capture's rules)."""
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self._eager(x)
+        current.wait_stream(side)
+        before = dict(LAUNCHES)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            out = self._eager(x)
+        return CapturedForward(graph, x, out, {k: n - before[k] for k, n
+                                               in LAUNCHES.items()})
+
+    def _eager(self, x: torch.Tensor) -> torch.Tensor:
+        """``_forward`` in the engine's precision: fp32 with TF32 off."""
+        if self.dtype != torch.float32:   # bf16 convs take no TF32
+            return self._forward(x)
+        with tf32(False):
+            return self._forward(x)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         with span("engine:forward"):

@@ -95,7 +95,8 @@ from rtdm_tpu_torch.ops import acff as ops, kernels  # noqa: E402
 sys.path.insert(0, str(ROOT))
 from chip_smoke import (BRANCH_SPREAD, DTYPES, ENGINES,  # noqa: E402
                         FP64_REL_TOL, GOLDEN, MODELS, WIDE_SHAPES,
-                        acff_inputs, card_line, graph_ms, real_input_errors)
+                        acff_inputs, card_line, eager_forward, graph_ms,
+                        real_input_errors)
 
 OUT = ROOT / "build" / "phase_variants" / MEASURED.name
 SHAPES = [(16, 64, 69), (8, 64, 69), (64, 96, 33), (96, 128, 15),
@@ -309,12 +310,12 @@ def real_inputs(fns: dict) -> dict:
         eng = Engine(spec, loaded.variables)
         frames, want = golden[f"frames_{spec.image_size}"], golden[model]
         with acff_inputs(eng.model, len(want)) as blocks:
-            eng(frames)
+            eager_forward(eng, frames)
         for name, fn in fns.items():
             kern._fn = fn
             try:
                 rows = real_input_errors(blocks)
-                err = float(np.abs(eng(frames) - want).max())
+                err = float(np.abs(eager_forward(eng, frames) - want).max())
             finally:
                 kern._fn = whole
             top = float(np.abs(want).max())

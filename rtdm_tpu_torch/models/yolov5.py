@@ -28,6 +28,13 @@ bf16 first. Every other consumer (a residual add, a concat, a pool, an
 upsample) rounds it to bf16 first. The committed detectors use only the
 yolov5s.yaml blocks; the others are held to the JAX package in fp32.
 
+Spans (``utils/profiler.py::span``, recorded only under a profiler):
+``YoloV5.forward`` opens one range around each yaml entry, named by its
+module (``SPANS``: ``det:v5:focus``, ``det:v5:conv``, ``det:v5:c3``,
+``det:v5:spp``, ``det:v5:resample``, ``det:v5:head``); a ConvBnSiLU's
+BatchNorm and SiLU and a Bottleneck's residual add sit in
+``det:v5:epilogue``.
+
 ``parse_v5_yaml`` reads the yaml subset these model files use (a mapping
 of scalars, flow lists and block lists of flow lists) without PyYAML
 (``utils/yaml_io.py``).
@@ -47,6 +54,7 @@ from rtdm_tpu_torch.models.layers import (BatchNorm, Conv, acc_dtype,
                                           leaky_relu, silu)
 from rtdm_tpu_torch.ops.convpool import max_pool2d
 from rtdm_tpu_torch.utils import yaml_io
+from rtdm_tpu_torch.utils.profiler import span
 
 # modules whose n > 1 repeats them (nn.Sequential in the reference), as
 # m{i}_{j}; C3, C3TR and BottleneckCSP take n themselves
@@ -137,10 +145,11 @@ class ConvBnSiLU(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.conv.weight.dtype
         y = self.conv(x)
-        y = (self.bn(y) if self.training else self.bn.affine(y)).to(dtype)
-        if not self.act:
-            return y
-        return silu(y, round_output=not self.keep_fp32)
+        with span("det:v5:epilogue"):
+            y = (self.bn(y) if self.training else self.bn.affine(y)).to(dtype)
+            if not self.act:
+                return y
+            return silu(y, round_output=not self.keep_fp32)
 
 
 class Focus(nn.Module):
@@ -169,9 +178,10 @@ class Bottleneck(nn.Module):
         if not self.add:
             return out
         dtype = self.cv1.conv.weight.dtype
-        acc = acc_dtype(out)
-        y = x.to(dtype).to(acc) + out.to(dtype).to(acc)
-        return y if self.keep_fp32 else y.to(dtype)
+        with span("det:v5:epilogue"):
+            acc = acc_dtype(out)
+            y = x.to(dtype).to(acc) + out.to(dtype).to(acc)
+            return y if self.keep_fp32 else y.to(dtype)
 
 
 class C3(nn.Module):
@@ -484,6 +494,12 @@ def _repeated_block(m: str, c1: int, args: List[Any]) -> nn.Module:
 
 _STACKS = {"C3": C3, "C3TR": C3TR, "BottleneckCSP": BottleneckCSP}
 
+# the range ``YoloV5.forward`` opens around each yaml entry, by its module;
+# any other module opens ``det:v5:other``
+SPANS = {"Focus": "det:v5:focus", "Conv": "det:v5:conv", "C3": "det:v5:c3",
+         "SPP": "det:v5:spp", "nn.Upsample": "det:v5:resample",
+         "Concat": "det:v5:resample", "Detect": "det:v5:head"}
+
 
 # ---------------------------------------------------------------------------
 # the model
@@ -537,6 +553,32 @@ class YoloV5(nn.Module):
     def heads(self) -> List[YoloHead]:
         return yolov5_heads(self)
 
+    def _entry(self, e: Dict[str, Any], src, dtype: torch.dtype,
+               raw_heads: List[torch.Tensor]):
+        """The output of yaml entry ``e`` on ``src`` (Detect: its last raw
+        map, each appended to ``raw_heads``)."""
+        i, m, n = e["i"], e["module"], e["n"]
+        if m in REPEATED:
+            x = src
+            for j in range(n):
+                x = getattr(self, f"m{i}_{j}" if n > 1 else f"m{i}")(x)
+            return x
+        if m in _STACKS or m in ("Sum", "Classify"):
+            return getattr(self, f"m{i}")(src)
+        if m == "nn.Upsample":
+            s = int(e["args"][1])
+            return src.to(dtype).repeat_interleave(s, 1)\
+                .repeat_interleave(s, 2)
+        if m == "Concat":
+            return torch.cat([t.to(dtype) for t in src], -1)
+        if m == "Contract":
+            return contract(src.to(dtype), e["args"][0])
+        if m == "Expand":
+            return expand(src.to(dtype), e["args"][0])
+        for li, t in enumerate(src):                     # Detect
+            raw_heads.append(getattr(self, f"m{i}_m{li}")(t))
+        return raw_heads[-1]
+
     def forward(self, x: torch.Tensor, up_to: Optional[int] = None):
         """The yaml graph on NHWC x: the raw head maps (a Classify-headed
         yaml: its logits); with ``up_to=k``, layer k's output (the prefix
@@ -546,29 +588,11 @@ class YoloV5(nn.Module):
         outputs: List[Optional[torch.Tensor]] = []
         raw_heads: List[torch.Tensor] = []
         for e in self.plan:
-            i, f, m, n = e["i"], e["f"], e["module"], e["n"]
+            i, f, m = e["i"], e["f"], e["module"]
             src = ((x if f == -1 else outputs[f]) if isinstance(f, int)
                    else [x if j == -1 else outputs[j] for j in f])
-            if m in REPEATED:
-                x = src
-                for j in range(n):
-                    x = getattr(self, f"m{i}_{j}" if n > 1 else f"m{i}")(x)
-            elif m in _STACKS or m in ("Sum", "Classify"):
-                x = getattr(self, f"m{i}")(src)
-            elif m == "nn.Upsample":
-                s = int(e["args"][1])
-                x = src.to(dtype).repeat_interleave(s, 1)\
-                    .repeat_interleave(s, 2)
-            elif m == "Concat":
-                x = torch.cat([t.to(dtype) for t in src], -1)
-            elif m == "Contract":
-                x = contract(src.to(dtype), e["args"][0])
-            elif m == "Expand":
-                x = expand(src.to(dtype), e["args"][0])
-            else:                                        # Detect
-                for li, t in enumerate(src):
-                    raw_heads.append(getattr(self, f"m{i}_m{li}")(t))
-                x = raw_heads[-1]
+            with span(SPANS.get(m, "det:v5:other")):
+                x = self._entry(e, src, dtype, raw_heads)
             if up_to is not None and i == up_to:
                 return x
             outputs.append(x if i in self.needed else None)
